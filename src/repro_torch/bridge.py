@@ -1,0 +1,87 @@
+"""Weights for the port.
+
+* :func:`init_params` builds the reference's parameter tree on the target
+  device from a seed, with the reference's distributions. This is how
+  weights reach the GPU, with no JAX installed beside the port.
+* :func:`from_numpy_tree` / :func:`to_numpy_tree` carry a reference tree,
+  given as numpy arrays, into torch tensors and back. The tests use it to
+  run both packages on the same weights. Layouts are kept as they are
+  (``dense`` is ``(d_in, d_out)``; stacked segments keep their leading
+  layer axis), so the bridge is a copy, never a transpose. bfloat16 goes
+  through a 16-bit integer view, as ``repro/training/checkpoint.py`` does:
+  numpy has no native bfloat16.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import gqa_init
+from repro_torch.models.layers import embed_init, mlp_init, norm_init
+from repro_torch.models.transformer import stack_plan
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _leaf_to_torch(a):
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def from_numpy_tree(tree):
+    """Reference parameter tree (nested dicts / lists of numpy arrays,
+    bfloat16 as the ``ml_dtypes`` type JAX hands out) -> the same tree of
+    CPU torch tensors, each leaf keeping its dtype."""
+    return _map(tree, _leaf_to_torch)
+
+
+def _leaf_to_numpy(t):
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def to_numpy_tree(tree):
+    """Torch tree -> numpy tree. bfloat16 leaves come back as their raw
+    ``uint16`` bits (``a.view(np.uint16)`` of the reference array)."""
+    return _map(tree, _leaf_to_numpy)
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
+    """The reference's parameter tree for ``cfg``, drawn on ``device`` from
+    a ``torch.Generator`` seeded with ``seed``: dense weights normal *
+    1/sqrt(d_in), the embedding normal * 0.02 over the 512-padded vocab,
+    norm scales one. Same shapes and distributions as ``Model.init``; not
+    the same numbers (JAX's generator differs)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = cfg.torch_dtype
+    d = cfg.d_model
+    segments = []
+    for seg in stack_plan(cfg):
+        lead = (seg.n,) if seg.n > 1 else ()
+        segments.append({
+            "ln1": norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias),
+            "attn": gqa_init(cfg, gen, dt, dev, lead=lead),
+            "ln2": norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias),
+            "mlp": mlp_init(gen, d, cfg.d_ff, dt, dev, gated=cfg.gated_mlp,
+                            lead=lead, bias=cfg.use_bias),
+        })
+    return {
+        "embed": embed_init(gen, cfg.vocab_size, d, dt, dev),
+        "final_norm": norm_init(d, dt, dev, bias=cfg.use_bias),
+        "segments": segments,
+    }

@@ -1,0 +1,147 @@
+"""Architecture configs for the port.
+
+``ArchConfig`` is a copy of ``repro.configs.ArchConfig`` without the JAX
+dtype property: :attr:`ArchConfig.torch_dtype` maps the ``dtype`` string to
+a ``torch.dtype`` instead. ``get_config`` resolves dashed ids
+(``--arch h2o-danube-1.8b``) to a module of this package; ``smoke_config``
+returns the reduced variant the CPU tests use (2 layers, d_model 256),
+built exactly as the reference builds it. Only the archs this slice of the
+port serves have a module here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional
+
+import torch
+
+TORCH_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """A composable architecture description (field-for-field the
+    reference's, so a config moves between the two packages with
+    ``dataclasses.asdict``)."""
+
+    arch_id: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    source: str  # citation for the config numbers
+
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+
+    # --- attention variants -------------------------------------------------
+    attention: str = "gqa"  # gqa | mla | none
+    sliding_window: Optional[int] = None  # SWA width (tokens) or None
+    # trained context limit; serving sizes per-sequence block tables from it
+    max_seq_len: Optional[int] = None
+    global_attn_every: Optional[int] = None
+    rope_theta: float = 10_000.0
+    use_bias: bool = False
+
+    # --- MLA (deepseek-v2) ---------------------------------------------------
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+
+    # --- MoE -----------------------------------------------------------------
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    first_k_dense: int = 0
+    capacity_factor: float = 1.25
+
+    # --- SSM (mamba2 SSD) ----------------------------------------------------
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_groups: int = 1
+    ssm_chunk: int = 256
+    ssm_conv_width: int = 4
+
+    # --- enc-dec / modality frontend -----------------------------------------
+    encoder_layers: int = 0
+    frontend: str = "none"
+    num_media_tokens: int = 0
+
+    gated_mlp: bool = True  # SwiGLU (3 mats) vs plain GeLU MLP (2 mats)
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    # compute the unembedding in float32 (greedy argmax comparable across
+    # implementations; bf16 logits round near-ties onto the same value)
+    logits_fp32: bool = False
+
+    @property
+    def attn_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def is_hybrid(self) -> bool:
+        return self.family == "hybrid"
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return TORCH_DTYPES[self.dtype]
+
+
+ARCH_IDS = [
+    "h2o-danube-1.8b",
+]
+
+
+def _module_name(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "p")
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id not in ARCH_IDS:
+        raise ValueError(f"arch {arch_id!r} is not ported yet "
+                         f"(ported: {', '.join(ARCH_IDS)})")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_module_name(arch_id)}")
+    return mod.CONFIG
+
+
+def smoke_config(arch_id: str) -> ArchConfig:
+    """Reduced variant of the same family: 2 layers, d_model 256, the
+    reference's reduction rules (``repro.configs.smoke_config``)."""
+    cfg = get_config(arch_id)
+    heads = min(cfg.num_heads, 4) or 0
+    kv = min(cfg.num_kv_heads, heads) if cfg.num_kv_heads else 0
+    updates = dict(
+        num_layers=2,
+        d_model=256,
+        num_heads=heads,
+        num_kv_heads=max(kv, 1) if cfg.attention != "none" else 0,
+        head_dim=64 if cfg.attention != "none" else 0,
+        d_ff=512 if cfg.d_ff else 0,
+        vocab_size=512,
+        encoder_layers=2 if cfg.is_encdec else 0,
+        num_media_tokens=8 if cfg.frontend != "none" else 0,
+    )
+    if cfg.sliding_window:
+        updates.update(sliding_window=64)
+    return dataclasses.replace(cfg, **updates)

@@ -1,0 +1,440 @@
+"""Paged serving engine on a real PyTorch model: ORCA iteration-level
+scheduling, vLLM paging, and the paged-attention CUDA kernel. GQA flavour
+of ``repro.serving.engine``.
+
+Per iteration (continuous batching):
+
+1. the :class:`IterationScheduler` plans prefill *chunks* and decodes under
+   the token budget and the page supply (chunked prefill: a prompt larger
+   than the budget is admitted once and contributes budget-sized chunks over
+   later iterations, next to the running decodes);
+2. each chunk runs through :meth:`PagedEngine._prefill_chunk`: its K/V is
+   written into the paged cache at per-token (page, offset) slots through the
+   request's block table, and its queries attend causally, at absolute RoPE
+   positions, over every context page (radix-cached prefix pages, earlier
+   chunks and the chunk itself). Chunk starts need not be page-aligned, which
+   is what lets a mid-page prefix-cache hit resume. Only the last chunk
+   samples a token;
+3. all running sequences advance one token in one batched
+   :meth:`PagedEngine._decode` over fixed slots: decode attention reads the
+   pages through the block tables with
+   :func:`repro_torch.kernels.paged_attention.paged_attention`, which
+   launches the CUDA kernel for CUDA tensors and runs its plain version for
+   CPU tensors, and sampling is fused over the slots with per-slot
+   parameters.
+
+Unlike the reference, which copies its immutable pools on every write, the
+KV pools here are updated **in place** (``index_put_``): the decode and
+prefill writes, the copy-on-write page copies and best-of-n forks all write
+into ``k_pages`` / ``v_pages`` directly. PyTorch runs eagerly, so the
+reference's power-of-two padding of chunk lengths and page lists (a jit
+shape bucket) is gone; results are the same.
+
+The engine implements :class:`~repro_torch.serving.api.ServingBackend`;
+drive it through :class:`~repro_torch.serving.api.LLMService`. Best-of-n
+requests (``SamplingParams.n > 1``) COW-fork the parent's block table right
+after its prefill. Zero-copy leases, host swap and spill tiers, page-payload
+export/import and disaggregated handoff come with later slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.core.paging.allocator import BlockAllocator
+from repro_torch.core.paging.layout import KVPageLayout
+from repro_torch.core.prefixcache.radix import PrefixCache
+from repro_torch.core.scheduling.iteration import IterationScheduler
+from repro_torch.core.scheduling.request import Request
+from repro_torch.core.telemetry import MetricsRegistry, Tracer
+from repro_torch.device import resolve_device
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.models import sampling
+from repro_torch.models.attention import blockwise_attention, gqa_layer
+from repro_torch.models.layers import embed, rms_norm, unembed
+from repro_torch.models.transformer import Model, seg_window
+from repro_torch.serving.api import SamplingParams
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    num_pages: int = 512
+    page_size: int = 16
+    max_slots: int = 8
+    max_tokens_per_iter: int = 2048
+    # seeds the sample stream of requests whose SamplingParams carry none
+    seed: int = 0
+    # radix-tree prefix KV cache: share prompt pages across requests and
+    # prefill only the uncached suffix
+    enable_prefix_cache: bool = False
+    # chunked-prefill budget policy: "decode_first", "prefill_first",
+    # "monolithic" or "solo" (see core.scheduling.iteration)
+    chunk_policy: str = "decode_first"
+    # structured event tracing + per-iteration metric timelines
+    enable_telemetry: bool = False
+
+
+class PagedEngine:
+    """Single-device engine instance. Implements the ServingBackend
+    protocol. ``params`` must already live on ``device``."""
+
+    def __init__(self, cfg: ArchConfig, params, ecfg: EngineConfig, *,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        table = params["embed"]["table"]
+        if table.device.type != self.device.type:
+            raise ValueError(f"params are on {table.device}, the engine on "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.ecfg = ecfg
+        self.params = params
+        self.model = Model(cfg)
+        self.kv_layout = KVPageLayout.from_arch(cfg)
+        if self.kv_layout.flavor != "gqa":
+            raise ValueError("this engine serves GQA stacks only")
+        P, ps = ecfg.num_pages, ecfg.page_size
+        # +1 trash page (index P): inactive decode slots park their writes
+        # there; no real context ever reads it
+        shape_a, shape_b = self.kv_layout.pool_shapes(P + 1, ps)
+        self.k_pages = torch.zeros(shape_a, dtype=cfg.torch_dtype,
+                                   device=self.device)
+        self.v_pages = torch.zeros(shape_b, dtype=cfg.torch_dtype,
+                                   device=self.device)
+        self.allocator = BlockAllocator(P, ps, layout=self.kv_layout)
+        self.prefix_cache = PrefixCache(self.allocator) \
+            if ecfg.enable_prefix_cache else None
+        self.scheduler = IterationScheduler(
+            self.allocator, max_running=ecfg.max_slots,
+            max_tokens_per_iter=ecfg.max_tokens_per_iter,
+            prefix_cache=self.prefix_cache, chunk_policy=ecfg.chunk_policy)
+        # per-sequence context cap: the trained limit, within the pages
+        self.max_context_len = min(cfg.max_seq_len or P * ps, P * ps)
+        self.slots: Dict[int, int] = {}  # request_id -> slot
+        self.free_slots = list(range(ecfg.max_slots - 1, -1, -1))
+        self.last_token = np.zeros(ecfg.max_slots, np.int64)
+        self.iterations = 0
+        self.preemptions = 0
+        self.decode_steps = 0  # batched decode calls (one per iteration)
+        # requests submitted without sampling params decode greedily
+        self._default_sp = SamplingParams()
+        # best-of-n children awaiting their parent's prefill (COW fork)
+        self._pending_forks: Dict[int, List[Request]] = {}
+        if ecfg.enable_telemetry:
+            self.trace = Tracer()
+            self.metrics = MetricsRegistry()
+            self.scheduler.trace = self.trace
+        else:
+            self.trace = None
+            self.metrics = None
+
+    # -- model steps ------------------------------------------------------------
+
+    @torch.no_grad()
+    def _prefill_chunk(self, tokens, page_ids, start: int):
+        """One prefill chunk at absolute positions ``[start, start + S)``.
+
+        tokens: (S,) chunk token ids; page_ids: the physical pages covering
+        context positions ``[0, start + S)`` in order (cached prefix pages,
+        pages of earlier chunks and the pages this chunk lands in). Each
+        chunk token's K/V is written to its (page, offset) slot, then the
+        chunk's queries attend causally over every gathered context page:
+        keys past a query's position are masked, so stale slot contents
+        past the chunk's end are never read. Returns the logits (V,) of the
+        chunk's last position.
+        """
+        cfg, ps, dev = self.cfg, self.ecfg.page_size, self.device
+        s = len(tokens)
+        toks = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
+        pages = torch.as_tensor(np.asarray(page_ids, np.int64), device=dev)
+        npg = pages.shape[0]
+        positions = start + torch.arange(s, device=dev)
+        tok_pages = pages[positions // ps]
+        in_page = positions % ps
+        hkv, dh = cfg.num_kv_heads, cfg.head_dim
+        x = embed(self.params["embed"], toks[None])  # (1, s, d)
+        for seg, li, p in self.model.layers(self.params):
+            kp, vp = self.k_pages[li], self.v_pages[li]
+
+            def attend(q, k, v, kp=kp, vp=vp, window=seg_window(cfg, seg)):
+                kp[tok_pages, in_page] = k[0].to(kp.dtype)
+                vp[tok_pages, in_page] = v[0].to(vp.dtype)
+                kall = kp[pages].reshape(1, npg * ps, hkv, dh)
+                vall = vp[pages].reshape(1, npg * ps, hkv, dh)
+                return blockwise_attention(q, kall.to(k.dtype),
+                                           vall.to(v.dtype), causal=True,
+                                           window=window, q_offset=start)
+
+            x = gqa_layer(cfg, p, x, positions, attend)
+        x = rms_norm(self.params["final_norm"], x[:, -1:], cfg.norm_eps)
+        logits = unembed(self.params["embed"], x, cfg.vocab_size,
+                         fp32=cfg.logits_fp32)
+        return logits[0, 0]
+
+    @torch.no_grad()
+    def _decode(self, tokens, positions, block_tables, ctx_lens):
+        """Batched one-token step over all slots.
+
+        tokens, positions, ctx_lens: (n,) with ctx_len 0 for an inactive
+        slot; block_tables: (n, width). Each slot's new K/V is written into
+        its page (inactive slots write to the trash page), then paged
+        attention runs over the block tables. Returns logits (n, V).
+        """
+        cfg, ecfg, dev = self.cfg, self.ecfg, self.device
+        n, ps = len(tokens), ecfg.page_size
+        toks = torch.as_tensor(tokens, device=dev)
+        pos = torch.as_tensor(positions, dtype=torch.int64, device=dev)
+        bt = torch.as_tensor(block_tables, dtype=torch.int32, device=dev)
+        lens = torch.as_tensor(ctx_lens, dtype=torch.int32, device=dev)
+        page_slot = bt[torch.arange(n, device=dev), pos // ps].long()
+        page_slot = torch.where(lens > 0, page_slot,
+                                torch.full_like(page_slot, ecfg.num_pages))
+        in_page = pos % ps
+        x = embed(self.params["embed"], toks[:, None])  # (n, 1, d)
+        for seg, li, p in self.model.layers(self.params):
+            kp, vp = self.k_pages[li], self.v_pages[li]
+
+            def attend(q, k, v, kp=kp, vp=vp, window=seg_window(cfg, seg)):
+                kp[page_slot, in_page] = k[:, 0].to(kp.dtype)
+                vp[page_slot, in_page] = v[:, 0].to(vp.dtype)
+                att = paged_attention(q[:, 0], kp, vp, bt, lens,
+                                      page_size=ps, window=window)
+                return att.reshape(n, 1, cfg.num_heads, cfg.head_dim)
+
+            x = gqa_layer(cfg, p, x, pos[:, None], attend)
+        x = rms_norm(self.params["final_norm"], x, cfg.norm_eps)
+        logits = unembed(self.params["embed"], x, cfg.vocab_size,
+                         fp32=cfg.logits_fp32)[:, 0]
+        self.decode_steps += 1
+        return logits
+
+    # -- ServingBackend protocol ------------------------------------------------
+
+    def add_request(self, req: Request) -> None:
+        if req.prompt_len + req.max_new_tokens > self.max_context_len:
+            raise ValueError(
+                f"request {req.request_id} needs "
+                f"{req.prompt_len + req.max_new_tokens} context tokens, "
+                f"engine limit is {self.max_context_len}")
+        if req.parent_id is not None and any(
+                r.request_id == req.parent_id for r in self.scheduler.waiting):
+            # best-of-n sibling: COW-forked off the parent's prefill instead
+            # of prefilling again
+            self._pending_forks.setdefault(req.parent_id, []).append(req)
+            return
+        self.scheduler.add_request(req)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.scheduler.waiting or self.scheduler.running
+                    or self._pending_forks)
+
+    def clock(self) -> Optional[float]:
+        return None  # wall-clock backend: the caller supplies `now`
+
+    # -- per-request sampling ---------------------------------------------------
+
+    def _sp_of(self, req: Request) -> SamplingParams:
+        return req.sampling if req.sampling is not None else self._default_sp
+
+    def _seed_of(self, req: Request) -> int:
+        sp = self._sp_of(req)
+        if sp.seed is not None:
+            return sp.seed & 0x7FFFFFFF
+        return (self.ecfg.seed * 1_000_003 + req.request_id * 7919
+                + 0x5BD1) & 0x7FFFFFFF
+
+    def _sample_rows(self, logits, reqs_by_row):
+        """Fused per-slot sampling. ``reqs_by_row``: Request or None per
+        row of ``logits``. Returns (tokens, logprobs) as numpy arrays."""
+        n = logits.shape[0]
+        temp = np.zeros(n, np.float32)
+        topk = np.zeros(n, np.int64)
+        topp = np.ones(n, np.float32)
+        seeds = np.zeros(n, np.int64)
+        steps = np.zeros(n, np.int64)
+        for i, req in enumerate(reqs_by_row):
+            if req is None:
+                continue
+            sp = self._sp_of(req)
+            temp[i] = sp.temperature
+            topk[i] = sp.top_k
+            topp[i] = sp.top_p
+            seeds[i] = self._seed_of(req)
+            # cumulative token index: keeps the stream aligned across
+            # preemption/recompute
+            steps[i] = req.total_generated
+        dev = logits.device
+        toks, lps = sampling.sample_batch(
+            logits, torch.as_tensor(seeds, device=dev),
+            torch.as_tensor(steps, device=dev),
+            torch.as_tensor(temp, device=dev),
+            torch.as_tensor(topk, device=dev),
+            torch.as_tensor(topp, device=dev))
+        return toks.cpu().numpy(), lps.cpu().numpy()
+
+    def _sample_one(self, req: Request, logits_row):
+        toks, lps = self._sample_rows(logits_row[None], [req])
+        return int(toks[0]), float(lps[0])
+
+    def _emit(self, req: Request, slot: int, tok: int, lp: float,
+              now: float) -> None:
+        req.output.append(tok)
+        req.cumulative_logprob += lp
+        req.logprobs.append(lp)
+        req.record_token_time(now)
+        self.last_token[slot] = tok
+
+    # -- engine loop ------------------------------------------------------------
+
+    def step(self, now: Optional[float] = None) -> List[Request]:
+        """Run ONE iteration (ORCA's unit of scheduling)."""
+        now = time.monotonic() if now is None else now
+        tr = self.trace
+        t_wall0 = 0.0
+        if tr is not None:
+            tr.now = now
+            tr.iteration = self.iterations
+            t_wall0 = time.monotonic()
+        plan = self.scheduler.schedule()
+        self.preemptions += len(plan.preempted)
+        for req in plan.preempted:
+            if req.request_id in self.slots:
+                self.free_slots.append(self.slots.pop(req.request_id))
+        if plan.empty:
+            # a self-preempted request can leave an otherwise-empty plan:
+            # run completion anyway (the scheduler's preemption budget)
+            return self.scheduler.complete_iteration(plan, now) \
+                if plan.preempted else []
+        # COW: copy replaced shared pages before anything writes this
+        # iteration (the gather on the right copies before the write)
+        if plan.cow:
+            old = torch.as_tensor([o for o, _ in plan.cow], device=self.device)
+            new = torch.as_tensor([w for _, w in plan.cow], device=self.device)
+            self.k_pages[:, new] = self.k_pages[:, old]
+            self.v_pages[:, new] = self.v_pages[:, old]
+
+        # --- prefill chunks (initiation phase) ---
+        forked: List[Request] = []
+        ps = self.ecfg.page_size
+        for ch in plan.chunks:
+            req = ch.req
+            if req.request_id not in self.slots:
+                # first chunk: claim the decode slot the request will keep
+                self.slots[req.request_id] = self.free_slots.pop()
+            slot = self.slots[req.request_id]
+            if req.scheduled_time is None:
+                req.scheduled_time = now
+            table = self.scheduler.tables[req.request_id]
+            n_ctx_pages = -(-ch.end // ps)  # ceil
+            t_chunk0 = time.monotonic() if tr is not None else 0.0
+            logits = self._prefill_chunk(req.prompt[ch.start:ch.end],
+                                         table.blocks[:n_ctx_pages],
+                                         ch.start)
+            if tr is not None:
+                tr.complete("engine", "chunk", rid=req.request_id,
+                            ts=now + (t_chunk0 - t_wall0),
+                            dur=time.monotonic() - t_chunk0,
+                            start=ch.start, length=ch.length,
+                            last=ch.is_last)
+            if ch.is_last:
+                tok, lp = self._sample_one(req, logits)
+                self._emit(req, slot, tok, lp, now)
+                forked.extend(self._fork_children(req, logits, now))
+
+        # best-of-n children join the plan so completion sees them
+        plan.prefill.extend(forked)
+
+        # --- fused decode step (increment phase) ---
+        if plan.decode:
+            n = self.ecfg.max_slots
+            width = max(len(self.scheduler.tables[r.request_id].blocks)
+                        for r in plan.decode)
+            # unused entries stay 0: a real page (the trash page is
+            # num_pages), and one no valid position reaches
+            bt = np.zeros((n, width), np.int32)
+            lens = np.zeros(n, np.int32)
+            pos = np.zeros(n, np.int64)
+            row_reqs: List[Optional[Request]] = [None] * n
+            for req in plan.decode:
+                slot = self.slots[req.request_id]
+                blocks = self.scheduler.tables[req.request_id].blocks
+                bt[slot, :len(blocks)] = blocks
+                # input token t_g sits at absolute position ctx_len-1; after
+                # its KV is written the attention span is ctx_len tokens
+                lens[slot] = req.context_len
+                pos[slot] = req.context_len - 1
+                row_reqs[slot] = req
+            logits = self._decode(self.last_token.copy(), pos, bt, lens)
+            sampled, lps = self._sample_rows(logits, row_reqs)
+            for req in plan.decode:
+                slot = self.slots[req.request_id]
+                self._emit(req, slot, int(sampled[slot]), float(lps[slot]),
+                           now)
+
+        finished = self.scheduler.complete_iteration(plan, now)
+        for req in finished:
+            if req.request_id in self.slots:
+                self.free_slots.append(self.slots.pop(req.request_id))
+        if tr is not None:
+            dur = time.monotonic() - t_wall0
+            tr.complete("engine", "iteration", ts=now, dur=dur,
+                        tokens=plan.token_count(),
+                        decodes=len(plan.decode), chunks=len(plan.chunks))
+            m = self.metrics
+            m.gauge("kv_util_frac",
+                    self.allocator.num_used / self.allocator.num_blocks)
+            m.gauge("prefill_backlog_tokens",
+                    self.scheduler.prefill_backlog_tokens())
+            m.gauge("budget_fill_frac",
+                    plan.token_count() / self.scheduler.max_tokens)
+            m.gauge("running", len(self.scheduler.running))
+            m.gauge("waiting", len(self.scheduler.waiting))
+            if self.prefix_cache is not None:
+                m.gauge("prefix_hit_rate", self.prefix_cache.hit_rate)
+            m.count("tokens", plan.token_count())
+            m.count("decode_tokens", len(plan.decode))
+            m.count("prefill_tokens", sum(c.length for c in plan.chunks))
+            m.count("preemptions", len(plan.preempted))
+            m.observe("iteration_time_s", dur)
+            m.snapshot(now, self.iterations)
+        self.iterations += 1
+        return finished
+
+    def _fork_children(self, parent: Request, logits, now) -> List[Request]:
+        """COW-fork best-of-n siblings off ``parent``'s fresh prefill: each
+        child shares the prompt pages (no second prefill) and samples its
+        own first token from the same last-position logits."""
+        children = self._pending_forks.pop(parent.request_id, [])
+        forked = []
+        for child in children:
+            if self.free_slots and \
+                    len(self.scheduler.running) < self.scheduler.max_running:
+                self.scheduler.fork_from(parent, child)
+                slot = self.free_slots.pop()
+                self.slots[child.request_id] = slot
+                child.scheduled_time = now
+                child.first_token_time = now
+                if self.trace is not None:
+                    self.trace.instant("req", "first_token",
+                                       rid=child.request_id)
+                tok, lp = self._sample_one(child, logits)
+                self._emit(child, slot, tok, lp, now)
+                forked.append(child)
+            else:
+                # no slot free: an ordinary request (with the prefix cache
+                # on it still reuses the parent's prompt pages)
+                self.scheduler.add_request(child)
+        return forked
+
+    def run_to_completion(self, max_iters: int = 10_000) -> None:
+        for _ in range(max_iters):
+            self.step()
+            if not self.has_work:
+                return
+        raise RuntimeError("engine did not drain")
