@@ -21,6 +21,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import gqa_init
 from repro_torch.models.layers import embed_init, mlp_init, norm_init
+from repro_torch.models.ssm import ssm_init
 from repro_torch.models.transformer import stack_plan
 
 
@@ -63,8 +64,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     """The reference's parameter tree for ``cfg``, drawn on ``device`` from
     a ``torch.Generator`` seeded with ``seed``: dense weights normal *
     1/sqrt(d_in), the embedding normal * 0.02 over the 512-padded vocab,
-    norm scales one. Same shapes and distributions as ``Model.init``; not
-    the same numbers (JAX's generator differs)."""
+    norm scales one; an SSM layer's conv weights normal * 0.2, A_log =
+    log(1..H), D one, dt_bias and the conv bias zero. Same shapes and
+    distributions as ``Model.init``; not the same numbers (JAX's generator
+    differs)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -73,13 +76,17 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     segments = []
     for seg in stack_plan(cfg):
         lead = (seg.n,) if seg.n > 1 else ()
-        segments.append({
-            "ln1": norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias),
-            "attn": gqa_init(cfg, gen, dt, dev, lead=lead),
-            "ln2": norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias),
-            "mlp": mlp_init(gen, d, cfg.d_ff, dt, dev, gated=cfg.gated_mlp,
-                            lead=lead, bias=cfg.use_bias),
-        })
+        p = {"ln1": norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias)}
+        if seg.mixer == "gqa":
+            p["attn"] = gqa_init(cfg, gen, dt, dev, lead=lead)
+        if seg.mixer == "ssm":
+            p["ssm"] = ssm_init(cfg, gen, dt, dev, lead=lead)
+        if seg.mlp_kind == "dense":
+            p["ln2"] = norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias)
+            p["mlp"] = mlp_init(gen, d, cfg.d_ff, dt, dev,
+                                gated=cfg.gated_mlp, lead=lead,
+                                bias=cfg.use_bias)
+        segments.append(p)
     return {
         "embed": embed_init(gen, cfg.vocab_size, d, dt, dev),
         "final_norm": norm_init(d, dt, dev, bias=cfg.use_bias),

@@ -5,8 +5,8 @@ dtype property: :attr:`ArchConfig.torch_dtype` maps the ``dtype`` string to
 a ``torch.dtype`` instead. ``get_config`` resolves dashed ids
 (``--arch h2o-danube-1.8b``) to a module of this package; ``smoke_config``
 returns the reduced variant the CPU tests use (2 layers, d_model 256),
-built exactly as the reference builds it. Only the archs this slice of the
-port serves have a module here.
+built exactly as the reference builds it. Only the archs the port runs so
+far have a module here.
 """
 
 from __future__ import annotations
@@ -91,6 +91,14 @@ class ArchConfig:
         return self.num_heads * self.head_dim
 
     @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
@@ -109,6 +117,7 @@ class ArchConfig:
 
 ARCH_IDS = [
     "h2o-danube-1.8b",
+    "mamba2-1.3b",
 ]
 
 
@@ -142,6 +151,8 @@ def smoke_config(arch_id: str) -> ArchConfig:
         encoder_layers=2 if cfg.is_encdec else 0,
         num_media_tokens=8 if cfg.frontend != "none" else 0,
     )
+    if cfg.ssm_state:
+        updates.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=32)
     if cfg.sliding_window:
         updates.update(sliding_window=64)
     return dataclasses.replace(cfg, **updates)

@@ -7,6 +7,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.attention import blockwise_attention
+
 NEG_INF = -1e30  # the Pallas kernel's mask value
 
 
@@ -48,3 +50,123 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     if return_partials:
         return out, m.reshape(b, h), l.reshape(b, h)
     return out
+
+
+def flash_prefill(q, k, v, *, causal: bool = True,
+                  window: Optional[int] = None):
+    """Flash-attention forward, as the Pallas kernel ``_flash_kernel``
+    computes it: float32 math on upcast inputs, unrounded probabilities,
+    output in q's type.
+
+    q: (B, S, H, Dh); k, v: (B, Skv, Hkv, Dh), H a multiple of Hkv (GQA).
+    Key ``k`` is valid for query ``i`` iff ``k <= i`` (causal) and, with a
+    window, ``k > i - window``. A row with no valid key returns zeros: the
+    sum of exponentials is clamped at 1e-9, as the Pallas kernel does.
+    """
+    b, s, h, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, s, hkv, g, dh).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) \
+        * (1.0 / dh ** 0.5)
+    qpos = torch.arange(s, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    valid = torch.ones(s, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        valid &= kpos[None, :] > qpos[:, None] - window
+    scores = scores.masked_fill(~valid, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m) * valid
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p / l, v.float())
+    return o.reshape(b, s, h, dh).to(q.dtype)
+
+
+def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
+                            window: Optional[int] = None):
+    """One prefill chunk's causal attention over a paged KV pool, exactly
+    as ``PagedEngine._prefill_chunk`` computed it before the kernel: gather
+    the context pages, then ``models.attention.blockwise_attention`` with
+    the chunk's offset.
+
+    q: (1, S, H, Dh), the chunk's queries at absolute positions
+    ``[q_offset, q_offset + S)``; pools: (P, ps, Hkv, Dh); page_ids: (n,)
+    the pages covering context positions ``[0, n * ps)`` in order, with
+    ``q_offset + S <= n * ps``. Keys past a query's position are masked,
+    so the pool's contents past ``q_offset + S`` never reach a result.
+    Rounds q, k, v and the normalised probabilities to bfloat16 and
+    accumulates in float32; output in q's type.
+    """
+    _, s, h, dh = q.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    n = page_ids.shape[0]
+    idx = page_ids.long()
+    k = k_pool[idx].reshape(1, n * ps, hkv, dh)
+    v = v_pool[idx].reshape(1, n * ps, hkv, dh)
+    return blockwise_attention(q, k, v, causal=True, window=window,
+                               q_offset=q_offset)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int):
+    """Mamba2 SSD chunked scan: the arithmetic of the Pallas kernel
+    ``_ssd_kernel`` and of ``repro.models.ssm.ssd_chunked``, with the
+    inter-chunk recurrence as a loop over chunks.
+
+    x: (b, l, h, p) any float; dt: (b, l, h) float32 after softplus; A:
+    (h,) float32, negative; B, C: (b, l, g, n), head ``i`` reading group
+    ``i // (h // g)``. ``l`` must be a multiple of ``chunk``. Returns y
+    (b, l, h, p) float32 and the final state (b, h, p, n) float32.
+    """
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if l % chunk:
+        raise ValueError(f"ssd_scan: sequence {l} is not a multiple of "
+                         f"chunk {chunk}")
+    nc, rep = l // chunk, h // g
+    dt = dt.float()
+    xdt = (x.float() * dt[..., None]).reshape(b, nc, chunk, h, p)
+    a_cum = torch.cumsum((dt * A.float()).reshape(b, nc, chunk, h), dim=2)
+    Bh = B.float().repeat_interleave(rep, dim=2).reshape(b, nc, chunk, h, n)
+    Ch = C.float().repeat_interleave(rep, dim=2).reshape(b, nc, chunk, h, n)
+
+    # intra-chunk: Lmat[i, j] = exp(cum_i - cum_j) for j <= i
+    ac = a_cum.transpose(2, 3)  # (b, nc, h, chunk)
+    tril = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    lmat = torch.exp((ac[..., :, None] - ac[..., None, :])
+                     .masked_fill(~tril, float("-inf")))
+    scores = torch.einsum("bzihn,bzjhn->bzhij", Ch, Bh) * lmat
+    y = torch.einsum("bzhij,bzjhp->bzihp", scores, xdt)
+
+    # each chunk's own state, then the recurrence across chunks
+    decay_out = torch.exp(a_cum[:, :, -1:, :] - a_cum)
+    states = torch.einsum("bzlh,bzlhn,bzlhp->bzhpn", decay_out, Bh, xdt)
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])  # (b, nc, h)
+    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+    decay_in = torch.exp(a_cum)
+    for z in range(nc):
+        y[:, z] += torch.einsum("blhn,blh,bhpn->blhp", Ch[:, z],
+                                decay_in[:, z], state)
+        state = state * chunk_decay[:, z, :, None, None] + states[:, z]
+    return y.reshape(b, l, h, p), state
+
+
+def ssd_scan_ref(x, dt, A, B, C):
+    """Sequential SSD recurrence, one token at a time: the oracle of
+    ``repro.kernels.ref.ssd_scan_ref``. Same arguments as
+    :func:`ssd_scan` without ``chunk``; returns y and the final state."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    Bh = B.float().repeat_interleave(rep, dim=2)
+    Ch = C.float().repeat_interleave(rep, dim=2)
+    xf, dt = x.float(), dt.float()
+    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(l):
+        decay = torch.exp(dt[:, t] * A)
+        state = state * decay[..., None, None] + torch.einsum(
+            "bhp,bhn->bhpn", xf[:, t] * dt[:, t, :, None], Bh[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    return torch.stack(ys, dim=1), state

@@ -1,6 +1,6 @@
 """Paged serving engine on a real PyTorch model: ORCA iteration-level
-scheduling, vLLM paging, and the paged-attention CUDA kernel. GQA flavour
-of ``repro.serving.engine``.
+scheduling, vLLM paging, and the prefill- and decode-attention CUDA
+kernels. GQA flavour of ``repro.serving.engine``.
 
 Per iteration (continuous batching):
 
@@ -12,9 +12,12 @@ Per iteration (continuous batching):
    written into the paged cache at per-token (page, offset) slots through the
    request's block table, and its queries attend causally, at absolute RoPE
    positions, over every context page (radix-cached prefix pages, earlier
-   chunks and the chunk itself). Chunk starts need not be page-aligned, which
-   is what lets a mid-page prefix-cache hit resume. Only the last chunk
-   samples a token;
+   chunks and the chunk itself) with
+   :func:`repro_torch.kernels.flash_prefill.prefill_attention_paged`, which
+   reads the pages in place in the CUDA kernel for CUDA tensors and
+   gathers them for its plain version on CPU tensors. Chunk starts need not
+   be page-aligned, which is what lets a mid-page prefix-cache hit resume.
+   Only the last chunk samples a token;
 3. all running sequences advance one token in one batched
    :meth:`PagedEngine._decode` over fixed slots: decode attention reads the
    pages through the block tables with
@@ -54,9 +57,10 @@ from repro_torch.core.scheduling.iteration import IterationScheduler
 from repro_torch.core.scheduling.request import Request
 from repro_torch.core.telemetry import MetricsRegistry, Tracer
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_prefill import prefill_attention_paged
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import sampling
-from repro_torch.models.attention import blockwise_attention, gqa_layer
+from repro_torch.models.attention import gqa_layer
 from repro_torch.models.layers import embed, rms_norm, unembed
 from repro_torch.models.transformer import Model, seg_window
 from repro_torch.serving.api import SamplingParams
@@ -96,8 +100,10 @@ class PagedEngine:
         self.params = params
         self.model = Model(cfg)
         self.kv_layout = KVPageLayout.from_arch(cfg)
-        if self.kv_layout.flavor != "gqa":
-            raise ValueError("this engine serves GQA stacks only")
+        if self.kv_layout.flavor != "gqa" or cfg.attention != "gqa":
+            raise ValueError(f"{cfg.arch_id}: this engine serves GQA stacks "
+                             "only (an SSM model runs Model.prefill and "
+                             "Model.decode_step)")
         P, ps = ecfg.num_pages, ecfg.page_size
         # +1 trash page (index P): inactive decode slots park their writes
         # there; no real context ever reads it
@@ -121,6 +127,7 @@ class PagedEngine:
         self.iterations = 0
         self.preemptions = 0
         self.decode_steps = 0  # batched decode calls (one per iteration)
+        self.prefill_chunks = 0  # prefill chunk calls
         # requests submitted without sampling params decode greedily
         self._default_sp = SamplingParams()
         # best-of-n children awaiting their parent's prefill (COW fork)
@@ -143,20 +150,18 @@ class PagedEngine:
         context positions ``[0, start + S)`` in order (cached prefix pages,
         pages of earlier chunks and the pages this chunk lands in). Each
         chunk token's K/V is written to its (page, offset) slot, then the
-        chunk's queries attend causally over every gathered context page:
-        keys past a query's position are masked, so stale slot contents
-        past the chunk's end are never read. Returns the logits (V,) of the
+        chunk's queries attend causally over every context page: keys past
+        a query's position are masked, so stale slot contents past the
+        chunk's end are never read. Returns the logits (V,) of the
         chunk's last position.
         """
         cfg, ps, dev = self.cfg, self.ecfg.page_size, self.device
         s = len(tokens)
         toks = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
-        pages = torch.as_tensor(np.asarray(page_ids, np.int64), device=dev)
-        npg = pages.shape[0]
+        pages = torch.as_tensor(np.asarray(page_ids, np.int32), device=dev)
         positions = start + torch.arange(s, device=dev)
-        tok_pages = pages[positions // ps]
+        tok_pages = pages.long()[positions // ps]
         in_page = positions % ps
-        hkv, dh = cfg.num_kv_heads, cfg.head_dim
         x = embed(self.params["embed"], toks[None])  # (1, s, d)
         for seg, li, p in self.model.layers(self.params):
             kp, vp = self.k_pages[li], self.v_pages[li]
@@ -164,16 +169,14 @@ class PagedEngine:
             def attend(q, k, v, kp=kp, vp=vp, window=seg_window(cfg, seg)):
                 kp[tok_pages, in_page] = k[0].to(kp.dtype)
                 vp[tok_pages, in_page] = v[0].to(vp.dtype)
-                kall = kp[pages].reshape(1, npg * ps, hkv, dh)
-                vall = vp[pages].reshape(1, npg * ps, hkv, dh)
-                return blockwise_attention(q, kall.to(k.dtype),
-                                           vall.to(v.dtype), causal=True,
-                                           window=window, q_offset=start)
+                return prefill_attention_paged(q, kp, vp, pages,
+                                               q_offset=start, window=window)
 
             x = gqa_layer(cfg, p, x, positions, attend)
         x = rms_norm(self.params["final_norm"], x[:, -1:], cfg.norm_eps)
         logits = unembed(self.params["embed"], x, cfg.vocab_size,
                          fp32=cfg.logits_fp32)
+        self.prefill_chunks += 1
         return logits[0, 0]
 
     @torch.no_grad()

@@ -1,13 +1,18 @@
-"""The CUDA paged-attention kernel against its plain PyTorch version, on
-the card. Every test here needs a CUDA device and skips without one (the
-kernel has no CPU mode). This file imports no JAX, so it runs on a machine
-with the card:
+"""The port's CUDA kernels (paged_attention, flash_prefill, ssd_scan)
+against their plain PyTorch versions, on the card. Every test here needs a
+CUDA device and skips without one (a kernel has no CPU mode). This file
+imports no JAX, so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Inputs are made with numpy from a seed. Tolerances are those of
 ``tests/test_kernels.py``: float32 2e-5, bfloat16 3e-2; the float32
 partials m to 2e-5 and l (a sum of up to a few hundred terms) to 1e-4.
+The engine form of flash_prefill rounds its probabilities to bfloat16, so
+a one-ulp float32 difference in a score can flip a rounding (2**-8
+relative): it is held at 3e-2 in float32 too. ssd_scan returns float32
+from the same upcast inputs in both versions, in another order of sums:
+2e-4, as ``tests/test_kernels.py`` holds the Pallas kernel.
 """
 
 import numpy as np
@@ -15,7 +20,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                               prefill_attention_paged)
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=3e-2, atol=3e-2)
@@ -101,3 +109,186 @@ def test_cuda_kernel_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):  # q not contiguous
         paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1), kp,
                         vp, bt, lens, page_size=16)
+
+
+# -- flash_prefill ----------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,s,h,hkv,dh,causal,window",
+    [(1, 128, 4, 4, 64, True, None), (2, 256, 8, 2, 64, True, None),
+     (2, 256, 8, 2, 64, True, 64), (1, 128, 4, 1, 32, False, None),
+     (2, 192, 6, 2, 80, True, None), (1, 100, 32, 8, 80, False, 16)])
+def test_cuda_flash_prefill_matches_plain(cuda, b, s, h, hkv, dh, causal,
+                                          window, dtype):
+    rng = np.random.default_rng(b * s + dh)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, dtype) for shape in
+        ((b, s, h, dh), (b, s, hkv, dh), (b, s, hkv, dh)))
+    before = flash_prefill.launches
+    got = flash_prefill(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    want = tref.flash_prefill(q, k, v, causal=causal, window=window)
+    tol = F32 if dtype == torch.float32 else BF16
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("layout", ["layer_slice", "page_major_slice"])
+@pytest.mark.parametrize("s,q_offset", [(48, 0), (100, 37), (17, 160)])
+def test_cuda_prefill_attention_paged_matches_plain(cuda, s, q_offset,
+                                                    layout, window, dtype):
+    """The engine entry point at danube's head layout (H 32, Hkv 8, Dh 80,
+    page 16) over a strided layer slice of a 3-layer pool, pages in random
+    order, chunks at unaligned offsets."""
+    h, hkv, dh, ps, L = 32, 8, 80, 16, 3
+    rng = np.random.default_rng(s + q_offset)
+    n = -(-(q_offset + s) // ps) + 1  # one page past the context
+    npages = n + 5
+    shape = (npages, L, ps, hkv, dh) if layout == "page_major_slice" \
+        else (L, npages, ps, hkv, dh)
+    kp, vp = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, dtype) for _ in range(2))
+    k = kp[:, 1] if layout == "page_major_slice" else kp[1]
+    v = vp[:, 1] if layout == "page_major_slice" else vp[1]
+    pages = torch.from_numpy(rng.permutation(npages)[:n].astype(
+        np.int32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((1, s, h, dh)).astype(
+        np.float32)).to(cuda, dtype)
+    before = flash_prefill.launches
+    got = prefill_attention_paged(q, k, v, pages, q_offset=q_offset,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    want = tref.prefill_attention_paged(q, k, v, pages, q_offset=q_offset,
+                                        window=window)
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_prefill_raises_instead_of_falling_back(cuda):
+    q = torch.zeros(1, 8, 4, 32, device=cuda)
+    kp = torch.zeros(4, 16, 2, 32, device=cuda)
+    pages = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):  # float64 has no kernel
+        flash_prefill(q.double(), q[:, :, :2].double(), q[:, :, :2].double())
+    with pytest.raises(ValueError):  # int64 page ids are refused
+        prefill_attention_paged(q, kp, kp, pages.long(), q_offset=0)
+    with pytest.raises(ValueError):  # positions 9..16 need a second page
+        prefill_attention_paged(q, kp, kp, pages, q_offset=9)
+    with pytest.raises(ValueError):  # Dh above the kernel's tile
+        flash_prefill(torch.zeros(1, 8, 2, 160, device=cuda),
+                      torch.zeros(1, 8, 2, 160, device=cuda),
+                      torch.zeros(1, 8, 2, 160, device=cuda))
+
+
+# -- ssd_scan ---------------------------------------------------------------------
+
+def _ssd_inputs(b, l, h, p, g, n, seed, dev, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, l, h)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(h) * 0.5)).astype(np.float32)
+    B = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    C = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (x, dt, A, B, C)]
+    for i in (0, 3, 4):
+        t[i] = t[i].to(dtype)
+    return t
+
+
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,l,h,p,g,n,chunk",
+    [(2, 128, 4, 16, 1, 8, 16), (2, 128, 4, 16, 2, 8, 32),
+     (2, 128, 4, 16, 2, 8, 64), (2, 96, 4, 50, 1, 16, 32),
+     (1, 128, 6, 50, 2, 16, 64), (1, 512, 4, 64, 1, 128, 256),
+     (1, 80, 2, 8, 1, 4, 80)])
+def test_cuda_ssd_scan_matches_plain(cuda, b, l, h, p, g, n, chunk, dtype):
+    """Reference-test shapes (p 16, n 8, g 1/2, chunks 16-64), hymba's
+    p 50 / n 16, mamba2's p 64 / n 128 with chunk 256, and a chunk that
+    is not a multiple of the kernel's 64-row tile."""
+    x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, l + p, cuda, dtype)
+    before = ssd_scan.launches
+    y, st = ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    yr, sr = tref.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    assert y.dtype == st.dtype == torch.float32
+    torch.testing.assert_close(y, yr, **SSD_TOL)
+    torch.testing.assert_close(st, sr, **SSD_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_reads_projection_slices(cuda):
+    """x, B and C as ``ssm_forward`` hands them: strided slices of one
+    (b, l, conv_dim) tensor."""
+    b, l, h, p, n = 2, 64, 4, 16, 8
+    rng = np.random.default_rng(9)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (b, l, h * p + 2 * n)).astype(np.float32)).to(cuda)
+    x = xbc[..., :h * p].reshape(b, l, h, p)
+    B = xbc[..., h * p:h * p + n].reshape(b, l, 1, n)
+    C = xbc[..., h * p + n:].reshape(b, l, 1, n)
+    _, dt, A, _, _ = _ssd_inputs(b, l, h, p, 1, n, 3, cuda)
+    y, st = ssd_scan(x, dt, A, B, C, chunk=32)
+    yr, sr = tref.ssd_scan(x, dt, A, B, C, chunk=32)
+    torch.testing.assert_close(y, yr, **SSD_TOL)
+    torch.testing.assert_close(st, sr, **SSD_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_raises_instead_of_falling_back(cuda):
+    x, dt, A, B, C = _ssd_inputs(1, 48, 2, 8, 1, 4, 0, cuda)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan(x, dt, A, B, C, chunk=32)
+    with pytest.raises(TypeError):  # float64 has no kernel
+        ssd_scan(x.double(), dt, A, B.double(), C.double(), chunk=16)
+    x, dt, A, B, C = _ssd_inputs(1, 32, 2, 80, 1, 4, 0, cuda)
+    with pytest.raises(ValueError):  # p above the kernel's tile
+        ssd_scan(x, dt, A, B, C, chunk=16)
+
+
+# -- the paths through the kernels ---------------------------------------------------
+
+@pytest.mark.gpu
+def test_cuda_paths_launch_the_kernels(cuda):
+    """The engine's prefill chunks launch flash_prefill once per layer and
+    chunk; the SSM model's prefill launches ssd_scan once per layer."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.api import LLMService, SamplingParams
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+
+    cfg = dataclasses.replace(smoke_config("h2o-danube-1.8b"),
+                              dtype="float32")
+    params = init_params(cfg, seed=0, device=cuda)
+    engine = PagedEngine(cfg, params, EngineConfig(
+        num_pages=64, page_size=8, max_slots=2, max_tokens_per_iter=32),
+        device=cuda)
+    before = flash_prefill.launches
+    outs = LLMService(engine).generate([list(range(1, 70))],
+                                       SamplingParams(max_new_tokens=3))
+    assert len(outs[0].token_ids) == 3 and engine.prefill_chunks >= 3
+    assert flash_prefill.launches - before == \
+        cfg.num_layers * engine.prefill_chunks
+
+    cfg = smoke_config("mamba2-1.3b")
+    params = init_params(cfg, seed=0, device=cuda)
+    before = ssd_scan.launches
+    logits, caches = Model(cfg).prefill(
+        params, torch.arange(64, device=cuda).reshape(2, 32) % 500)
+    assert ssd_scan.launches - before == cfg.num_layers
+    assert torch.isfinite(logits[:, :cfg.vocab_size].float()).all()
+    assert caches[0].state.shape == (2, 2, cfg.ssm_heads, 32, 16)
