@@ -13,7 +13,9 @@ or the JAX package) and:
    the card. ``paged_attention`` at h2o-danube-1.8b's widths (H 32, Hkv 8,
    Dh 80, page 16), float32 and bfloat16, with and without a sliding
    window, ragged context lengths including 0, a strided layer slice of a
-   pool, and the (m, l) partials. ``flash_prefill`` in both entry points:
+   pool, and the (m, l) partials; then contexts split over several blocks
+   (at a split's edges, over several splits, and past danube's 4096-token
+   window, with and without it). ``flash_prefill`` in both entry points:
    the contiguous form at ``tests/test_kernels.py``'s sweep (causal,
    non-causal, windowed), and the engine form at danube's widths over a
    strided layer slice of a ``(L, P, ps, Hkv, Dh)`` pool, chunks at offset 0
@@ -45,7 +47,16 @@ or the JAX package) and:
 7. times each kernel at its path's shapes beside its plain version, one
    PyTorch library call computing the same function where there is one,
    and the least time the card could take (its bound), and prints them as
-   one JSON line.
+   one JSON line; ``flash_prefill``'s engine form is also timed at each of
+   the kernel phase's chunk shapes, beside SDPA, one line each. The times
+   in the JSON line are of calls launched back to back from Python, as a
+   caller meets them; the card's time alone and the host's time per call
+   are printed beside them and kept in the detail line.
+
+``python3 chip_smoke.py --host-cost SRC`` runs only the timing of the two
+attention kernels, for the ``repro_torch`` package under ``SRC`` (e.g. an
+unpacked earlier commit's ``src``), to compare two trees' host cost per
+call on one card.
 
 Any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -58,6 +69,7 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -73,6 +85,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 TOL_ENGINE = dict(rtol=3e-2, atol=3e-2)  # flash_prefill's engine form
+# a bf16 result of float32 math against the plain version's: the two
+# float32 values differ by ~1e-6, so their roundings differ by at most one
+# bf16 ulp (2**-7 of the value) plus that float32 difference
+TOL_BF16_OUT = dict(rtol=2.0 ** -7, atol=1e-5)
 SSD_TOL = 2e-4  # of max |y| (max |state|)
 KERNELS = ("paged_attention", "flash_prefill", "ssd_scan")
 
@@ -113,19 +129,60 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn(i)`` over ``iters`` calls, by CUDA events."""
+def cuda_ms(fn, iters: int, warmup: int = 3, bursts: int = 5):
+    """Time of ``fn(i)`` per call over ``iters`` calls, by CUDA events, two
+    ways. Returns (ms, device_ms, host_us):
+
+    * ms: the calls launched back to back from the host, as a caller meets
+      them. Where the host takes longer to make a call than the card to run
+      it, this is the host's pace. The kernels line reports this time.
+    * device_ms: the same calls queued behind a device-side sleep that
+      outlasts the host's launching, so that the events time the card's
+      work alone; the median of ``bursts`` such bursts.
+    * host_us: the host's time to make one call, read while the card
+      sleeps (no call waits for the card); the median of the bursts, since
+      the host's pace drifts from burst to burst.
+    Where a call waits for the card, device_ms and host_us are None.
+    """
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for i in range(iters):
         fn(i)
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    host_s = time.perf_counter() - t0
+    ms = start.elapsed_time(stop) / iters
+    slept = torch.cuda.Event(enable_timing=True)
+    device, host = [], []
+    misses = 0  # bursts whose launching outlasted the sleep
+    while len(device) < bursts and misses < 3:
+        # cycles at the H100's top SM clock (1.98 GHz): a slower clock
+        # only lengthens the sleep
+        t0 = time.perf_counter()
+        slept.record()
+        torch.cuda._sleep(int(2 * host_s * 1.98e9) + 2_000_000)
+        start.record()
+        t1 = time.perf_counter()
+        for i in range(iters):
+            fn(i)
+        t2 = time.perf_counter()
+        stop.record()
+        torch.cuda.synchronize()
+        if slept.elapsed_time(start) > (t2 - t0) * 1e3:
+            # the sleep outlasted the launching
+            device.append(start.elapsed_time(stop) / iters)
+            host.append((t2 - t1) / iters * 1e6)
+        else:
+            misses += 1
+            host_s *= 4
+    if len(device) < bursts:
+        return ms, None, None  # fn waits for the card: not measured
+    return ms, statistics.median(device), statistics.median(host)
 
 
 # -- kernel phase ---------------------------------------------------------------
@@ -151,7 +208,8 @@ def paged_inputs(gen, dev, dtype, lens, layers=1, extra_pages=3,
 
 def kernel_phase(dev):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.paged_attention import (SPLIT_TOKENS,
+                                                     paged_attention)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     lens = [0, 1, 15, 16, 17, 300, 0, 1056]  # ragged, two empty rows
@@ -182,6 +240,35 @@ def kernel_phase(dev):
                                   window=window, layout=layout,
                                   max_abs_err=err))
                 log(f"kernel phase: paged_attention {cases[-1]} ok")
+    # contexts split over several blocks: at a split's edges, over several
+    # splits beside an empty row, and past danube's 4096-token window
+    split = SPLIT_TOKENS
+    lens = [split - 1, split, split + 1, 3 * split + 5, 0, 4096 + 300]
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (None, 4096):
+            q, k, v, bt, ctx = paged_inputs(gen, dev, dtype, lens)
+            k, v = k[0], v[0]
+            out, m, l = paged_attention(q, k, v, bt, ctx, page_size=PS,
+                                        window=window, return_partials=True)
+            torch.cuda.synchronize()
+            wo, wm, wl = ref.paged_attention(q, k, v, bt, ctx, page_size=PS,
+                                             window=window,
+                                             return_partials=True)
+            torch.testing.assert_close(out.float(), wo.float(), **TOL[dtype])
+            if dtype == torch.bfloat16:
+                # outputs over long contexts are small (|o| ~ 0.05), under
+                # TOL's 3e-2: hold them to one bf16 rounding of the plain
+                # result as well
+                torch.testing.assert_close(out.float(), wo.float(),
+                                           **TOL_BF16_OUT)
+            torch.testing.assert_close(m, wm, rtol=2e-5, atol=2e-5)
+            torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-4)
+            err = (out.float() - wo.float()).abs().max().item()
+            cases.append(dict(dtype=str(dtype).split(".")[-1],
+                              window=window, layout="split_contexts",
+                              context_lens=lens, max_abs_err=err,
+                              max_abs_ref=wo.float().abs().max().item()))
+            log(f"kernel phase: paged_attention {cases[-1]} ok")
     return cases
 
 
@@ -674,15 +761,17 @@ def timing_phase(dev, seed: int, launches: int):
 
     iters = 5 * L
     before = paged_attention.launches
-    ms = cuda_ms(lambda i: paged_attention(
+    ms, device_ms, host_us = cuda_ms(lambda i: paged_attention(
         q, kp[i % L], vp[i % L], bt, ctx, page_size=PS, window=window),
         iters)
     paged_attention.launches = before  # timing launches are not the path's
-    plain_ms = cuda_ms(lambda i: ref.paged_attention(
+    plain_ms, plain_device_ms, _ = cuda_ms(lambda i: ref.paged_attention(
         q, kp[i % L], vp[i % L], bt, ctx, page_size=PS, window=window),
         iters)
-    library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        q4, kg[i % L], vg[i % L], attn_mask=mask, enable_gqa=True), iters)
+    library_ms, library_device_ms, library_host_us = cuda_ms(
+        lambda i: F.scaled_dot_product_attention(
+            q4, kg[i % L], vg[i % L], attn_mask=mask, enable_gqa=True),
+        iters)
 
     # the least the card could take: each input byte read once, the output
     # written once (K/V of the valid positions only), or the operations
@@ -700,7 +789,10 @@ def timing_phase(dev, seed: int, launches: int):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms), \
         dict(batch=b, context_lens=lens, bytes=nbytes, flops=flops,
-             dtype="bfloat16", window=window)
+             dtype="bfloat16", window=window, device_ms=device_ms,
+             plain_device_ms=plain_device_ms,
+             library_device_ms=library_device_ms, host_us=host_us,
+             library_host_us=library_host_us)
 
 
 def bound(nbytes: int, flops: int, dtype):
@@ -716,7 +808,8 @@ def flash_timing(dev, seed: int, launches: int):
     """The engine form of flash_prefill at a serve-phase chunk: the second
     512-token chunk of the 1024-token prompt (positions 512..1023 over 1024
     keys), bf16 pools of the serve engine's geometry for all 24 layers,
-    cycled so that every call reads its layer's K/V from device memory."""
+    cycled so that every call reads its layer's K/V from device memory.
+    Then the kernel and SDPA at each ``ENGINE_CHUNKS`` shape."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
@@ -763,15 +856,18 @@ def flash_timing(dev, seed: int, launches: int):
 
     iters = 2 * L
     before = flash_prefill.launches
-    ms = cuda_ms(lambda i: prefill_attention_paged(
+    ms, device_ms, host_us = cuda_ms(lambda i: prefill_attention_paged(
         q, kp[i % L], vp[i % L], pages, q_offset=q_offset, window=window),
         iters)
     flash_prefill.launches = before  # timing launches are not the path's
-    plain_ms = cuda_ms(lambda i: ref.prefill_attention_paged(
-        q, kp[i % L], vp[i % L], pages, q_offset=q_offset, window=window),
+    plain_ms, plain_device_ms, _ = cuda_ms(
+        lambda i: ref.prefill_attention_paged(
+            q, kp[i % L], vp[i % L], pages, q_offset=q_offset,
+            window=window), iters)
+    library_ms, library_device_ms, library_host_us = cuda_ms(
+        lambda i: F.scaled_dot_product_attention(
+            q4, kg[i % L], vg[i % L], attn_mask=mask, enable_gqa=True),
         iters)
-    library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        q4, kg[i % L], vg[i % L], attn_mask=mask, enable_gqa=True), iters)
 
     # bytes: q and the output once, K/V of the context once, the page ids;
     # operations: QK^T and PV over the valid (query, key) pairs
@@ -780,6 +876,40 @@ def flash_timing(dev, seed: int, launches: int):
     nbytes = 2 * s * H * DH * esz + 2 * ctx * HKV * DH * esz + 4 * n
     flops = 4 * H * DH * pairs
     bound_ms, bound_by = bound(nbytes, flops, dtype)
+
+    # the kernel alone at each of the kernel phase's engine chunk shapes,
+    # beside SDPA on the same chunk (the mix a serve run launches)
+    chunks = []
+    all_pages = torch.randperm(shape[1] - 1, generator=gen, device=dev) \
+        .to(torch.int32)
+    for cs, co in ENGINE_CHUNKS:
+        cctx = co + cs
+        cn = -(-cctx // PS)
+        cpages = all_pages[:cn]
+        cq = q[:, :cs].contiguous()
+        cms, cdev, _ = cuda_ms(lambda i: prefill_attention_paged(
+            cq, kp[i % L], vp[i % L], cpages, q_offset=co, window=window),
+            iters)
+        cpos = co + torch.arange(cs, device=dev)
+        ckpos = torch.arange(cctx, device=dev)
+        cmask = (ckpos[None] <= cpos[:, None]) & \
+            (ckpos[None] > cpos[:, None] - window)
+        cidx = cpages.long()
+        ck = [kp[i][cidx].reshape(1, cn * PS, HKV, DH)[:, :cctx]
+              .transpose(1, 2) for i in range(L)]
+        cv = [vp[i][cidx].reshape(1, cn * PS, HKV, DH)[:, :cctx]
+              .transpose(1, 2) for i in range(L)]
+        cq4 = cq.transpose(1, 2)
+        clib, clib_dev, _ = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            cq4, ck[i % L], cv[i % L], attn_mask=cmask, enable_gqa=True),
+            iters)
+        cpairs = int(cmask.sum())
+        cb, _ = bound(2 * cs * H * DH * esz + 2 * cctx * HKV * DH * esz,
+                      4 * H * DH * cpairs, dtype)
+        chunks.append(dict(chunk=cs, q_offset=co, valid_pairs=cpairs,
+                           ms=cms, library_ms=clib, device_ms=cdev,
+                           library_device_ms=clib_dev, bound_ms=cb))
+    flash_prefill.launches = before
     return dict(name="flash_prefill", route="cuda",
                 source="src/repro_torch/csrc/flash_prefill.cu",
                 replaces="src/repro/kernels/flash_prefill.py:73",
@@ -787,7 +917,11 @@ def flash_timing(dev, seed: int, launches: int):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms), \
         dict(chunk=s, q_offset=q_offset, keys=ctx, valid_pairs=pairs,
-             bytes=nbytes, flops=flops, dtype="bfloat16", window=window)
+             bytes=nbytes, flops=flops, dtype="bfloat16", window=window,
+             engine_chunks=chunks, device_ms=device_ms,
+             plain_device_ms=plain_device_ms,
+             library_device_ms=library_device_ms, host_us=host_us,
+             library_host_us=library_host_us)
 
 
 def ssd_timing(dev, seed: int, launches: int):
@@ -809,10 +943,11 @@ def ssd_timing(dev, seed: int, launches: int):
     del y, st, yr, sr
 
     before = ssd_scan.launches
-    ms = cuda_ms(lambda i: ssd_scan(*sets[i % 3], chunk=chunk), 9)
+    ms, device_ms, host_us = cuda_ms(
+        lambda i: ssd_scan(*sets[i % 3], chunk=chunk), 9)
     ssd_scan.launches = before  # timing launches are not the path's
-    plain_ms = cuda_ms(lambda i: ref.ssd_scan(*sets[i % 3], chunk=chunk), 6,
-                       warmup=1)
+    plain_ms, plain_device_ms, _ = cuda_ms(
+        lambda i: ref.ssd_scan(*sets[i % 3], chunk=chunk), 6, warmup=1)
 
     # bytes: x, dt, A, B, C read once, y and the state written once;
     # operations: per (sequence, head, chunk) the masked scores C_i.B_j and
@@ -833,7 +968,62 @@ def ssd_timing(dev, seed: int, launches: int):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None), \
         dict(shape=[b, l, h, p, g, n], chunk=chunk, bytes=nbytes,
-             flops=flops, dtype="bfloat16")
+             flops=flops, dtype="bfloat16", device_ms=device_ms,
+             plain_device_ms=plain_device_ms, host_us=host_us)
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def log_timings(card: str, timed) -> None:
+    """One line per kernel: back to back (the kernels line's times), then
+    the card's time alone and the host's per call."""
+    for k, shapes in timed:
+        for c in shapes.get("engine_chunks", ()):
+            log(f"flash_prefill engine chunk on {card}: {c['chunk']} queries "
+                f"at offset {c['q_offset']} ({c['valid_pairs']} valid pairs "
+                f"x {H} heads): back to back kernel {c['ms']:.4f} ms, SDPA "
+                f"{c['library_ms']:.4f} ms; device kernel "
+                f"{fmt_ms(c['device_ms'])}, SDPA "
+                f"{fmt_ms(c['library_device_ms'])}; bound "
+                f"{c['bound_ms']:.5f} ms")
+        lib = "null" if k["library_ms"] is None \
+            else f"{k['library_ms']:.4f} ms"
+        host = f"{shapes['host_us']:.1f} us" \
+            if shapes["host_us"] is not None else "not measured"
+        log(f"{k['name']} on {card}: back to back kernel {k['ms']:.4f} ms, "
+            f"plain {k['plain_ms']:.4f} ms, library {lib}; device kernel "
+            f"{fmt_ms(shapes['device_ms'])}, plain "
+            f"{fmt_ms(shapes['plain_device_ms'])}, library "
+            f"{fmt_ms(shapes.get('library_device_ms'))}; host {host} per "
+            f"call; bound {k['bound_ms']:.4f} ms ({k['bound_by']}) at "
+            f"{shapes}")
+
+
+def host_cost(src: Path) -> int:
+    """``--host-cost SRC``: the timing of the two attention wrappers alone
+    (paged_attention at the serve decode shape, flash_prefill's engine form
+    at its chunks), for the ``repro_torch`` under ``SRC``, e.g. an unpacked
+    earlier commit's ``src``, so that two trees' host cost per call can be
+    compared on one card, the trees run in turns."""
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.kernels import _build
+    for name in KERNELS[:2]:
+        _build.build(name)
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    paged, paged_shapes = timing_phase(dev, seed=2, launches=0)
+    flash, flash_shapes = flash_timing(dev, seed=5, launches=0)
+    log(f"host cost of {src} on {card}")
+    log_timings(card, [(paged, paged_shapes), (flash, flash_shapes)])
+    log("host_cost " + json.dumps(dict(
+        src=str(src), card=card,
+        paged_attention=dict(ms=paged["ms"], library_ms=paged["library_ms"],
+                             **paged_shapes),
+        flash_prefill=dict(ms=flash["ms"], library_ms=flash["library_ms"],
+                           **flash_shapes))))
+    return 0
 
 
 def main() -> int:
@@ -841,6 +1031,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     root = Path(__file__).resolve().parent
+    if len(sys.argv) == 3 and sys.argv[1] == "--host-cost":
+        return host_cost(Path(sys.argv[2]))
     sys.path.insert(0, str(root / "src"))
     from repro_torch.kernels import _build  # fails outside a checkout
 
@@ -876,13 +1068,8 @@ def main() -> int:
     log(f"mamba2 phase on {card}: prefill {mamba['prefill_ms']:.1f} ms "
         f"for {MAMBA_BATCH} x {MAMBA_PROMPT} tokens, decode "
         f"{mamba['decode_tokens_per_s']:.1f} tokens/s")
-    for k, shapes in ((paged, paged_shapes), (flash, flash_shapes),
-                      (ssd, ssd_shapes)):
-        lib = "null" if k["library_ms"] is None \
-            else f"{k['library_ms']:.4f} ms"
-        log(f"{k['name']} on {card} at {shapes}: kernel {k['ms']:.4f} ms, "
-            f"plain {k['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{k['bound_ms']:.4f} ms ({k['bound_by']})")
+    log_timings(card, [(paged, paged_shapes), (flash, flash_shapes),
+                       (ssd, ssd_shapes)])
     log("detail " + json.dumps(dict(
         card=card, serve=serve, oracle=oracle, mamba=mamba,
         kernel_cases=cases, timing=dict(paged_attention=paged_shapes,

@@ -6,56 +6,75 @@
 // non-causal attention of (B, S, H, Dh) queries over (B, Skv, Hkv, Dh)
 // keys and values, GQA (G = H / Hkv query heads share one KV head), with
 // an optional sliding window (key k is valid for a query at position q iff
-// k <= q when causal, and k > q - window). One kernel body, two entry
-// points, and the numerics are a template parameter chosen by the entry
-// point:
-//  * flash_prefill_contiguous: the TPU kernel's function on contiguous
-//    K/V, queries at positions 0..S-1, float32 math on the inputs as they
-//    are, unrounded probabilities.
-//  * flash_prefill_paged: one prefill chunk of the serving engine. Its S
-//    queries sit at absolute positions q_offset..q_offset+S-1 and attend
+// k <= q when causal, and k > q - window). Two entry points, each with its
+// own kernel body:
+//  * flash_prefill_paged (the serving engine's prefill chunk, on the main
+//    path): S queries at absolute positions q_offset..q_offset+S-1 attend
 //    causally over K/V read in place from a strided per-layer pool slice
-//    through the chunk's int32 page ids (position k is token k % ps of
-//    page ids[k / ps]). Its numerics are those of the port's
-//    `blockwise_attention` (the XLA twin the engine ran before): q, k, v
-//    and the *normalised* probabilities are rounded to bfloat16,
-//    accumulation is float32.
+//    through the chunk's int32 page ids (position k is token k % ps of page
+//    ids[k / ps]). Its numerics are those of the port's
+//    `blockwise_attention`: q, k, v and the *normalised* probabilities are
+//    rounded to bfloat16, products accumulate in float32, the softmax is
+//    float32. Both products are therefore exactly what the tensor cores'
+//    bf16 -> f32 `mma` computes, under a float32 config too.
+//  * flash_prefill_contiguous: the TPU kernel's function on contiguous K/V
+//    (float32 math on the inputs as they are, unrounded probabilities). It
+//    is not on the serving path and keeps a float32 CUDA-core body: 64-row
+//    x 64-key tiles in shared memory, each of 256 threads a 4 x 4 tile of
+//    scores and a 4 x (Dh / 16) tile of the output.
 // Rounding normalised probabilities rules out a one-pass online softmax,
-// so both entry points make two passes over the keys: pass 1 takes each
-// row's max m and sum l = sum exp(s - m) over the valid keys (each thread
-// keeps a running pair over the keys it scores, and the 16 lanes sharing a
-// row merge theirs by shuffles); pass 2 forms p = exp(s - m) / max(l,
-// 1e-9), rounds it under the engine's numerics, and accumulates p v. A row
-// with no valid key returns zeros, as the TPU kernel does.
+// so both bodies make two passes over the keys: pass 1 takes each row's
+// max m and sum l = sum exp(s - m) over the valid keys, pass 2 forms
+// p = exp(s - m) / max(l, 1e-9) (rounded under the engine's numerics) and
+// accumulates p v. A row with no valid key returns zeros, as the TPU
+// kernel does.
 //
-// What bounds it on this card: operations. A 512-query chunk of
-// h2o-danube (H 32, Hkv 8, Dh 80) over ~770 valid keys per query is ~4
+// What bounds the engine form on this card: operations. A 512-query chunk
+// of h2o-danube (H 32, Hkv 8, Dh 80) over ~770 valid keys per query is ~4
 // GFLOP against ~8 MB of q, K/V and output: ~500 operations per byte, above
 // the ~295 at which an H100's bf16 tensor cores become the limit.
 //
-// What the design does: one block per (64 / G query positions x the G
-// heads of one KV head, a 64-row tile), so each K/V tile staged in shared
-// memory serves all G heads. It walks only the key tiles the tile's rows
-// can see (from the window's start to the causal end). Each of the 256
-// threads computes a 4 x 4 tile of scores and a 4 x (Dh / 16) tile of the
-// output in registers, from float32 tiles in shared memory padded to
-// Dh + 1 so that lanes reading a column hit distinct banks. head_dim need
-// not be a power of two (80 for danube): every loop over it is bounded by
-// Dh <= 128. Simple first: float32 CUDA cores, no tensor cores, no TMA,
-// scores computed twice.
+// What its design does about it: a block is a 64-row tile of (64 / G query
+// positions x the G heads of one KV head), so one staged K/V tile serves
+// all G heads; four compute warps own 16 rows each, and a fifth warp only
+// stages K/V (warp specialisation). K and V are staged as bf16 in shared
+// memory, 128 keys a tile, rows padded to Dh + 8 so that `ldmatrix` is
+// conflict-free, in two buffers per operand: the producer warp fills a
+// buffer once the compute warps have released it (an "empty" mbarrier) and
+// they wait for it to land (a "full" one), so loads overlap the math and no
+// block barrier is left in the loop. bf16 pools whose heads are contiguous
+// arrive by TMA, one box per page (16 token rows of the head's slice plus 8
+// pad elements) through a tensor map of the pool, so a tile costs 8 copies
+// where 16-byte copies took 1,280; float32 pools (rounded to bf16 as they
+// are stored), head-strided pools and pages that are not a multiple of 8
+// tokens go through the producer's registers. A layout that qualifies for
+// TMA but does not encode is an error, not a slower path. The block reads
+// its page ids into shared memory once. Both passes compute S = Q K^T with
+// `mma.sync.m16n8k16` bf16 -> f32 (fragments by `ldmatrix`); each thread
+// keeps the running max and sum of its two rows in base 2 (the scale
+// folded into one multiply-add before `ex2.approx`), merged over the row's
+// four lanes by shuffles. Pass 2 rounds p = 2^(s c - m) * (1 / l) into
+// bf16 pairs straight from the score accumulators, which is the
+// A-operand layout of the P V `mma`, so p never goes through shared memory;
+// O accumulates in float32 registers. Each block walks only the key tiles
+// its rows can see (from the window's start to the causal end) and masks
+// only the tiles that cross a row's range. Blocks are ordered so that the
+// two that share an SM pair a late (long) query tile with an early (short)
+// one. Dh is padded with zeros to 32, 64, 80 or 128, one instantiation each.
+// On the host, the pools' tensor maps, the shared-memory attribute and the
+// SM count are cached (tma.cuh): the engine calls once per layer and chunk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
-constexpr int kRows = 64;      // query rows (position x head) per block
-constexpr int kKeys = 64;      // keys per tile
-constexpr int kMaxDh = 128;
-constexpr int kDC = kMaxDh / 16;
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
+constexpr float kMinusInf = -__builtin_huge_valf();  // a masked score
+constexpr int kMaxDh = 128;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -65,38 +84,35 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 struct Args {
+  CUtensorMap kmap, vmap;  // paged entry with `tma`: the pools' tensor maps
   const void* q;         // (B, S, H, Dh), contiguous
   const void* k;         // contiguous entry: (b, pos, h, d) at
   const void* v;         //   b*sb + pos*st + h*sh + d; paged entry:
   const int32_t* pages;  //   pages[pos / ps]*sp + (pos % ps)*st + h*sh + d
   void* out;             // (B, S, H, Dh), contiguous
-  int S, H, Hkv, Dh, page_size, q_offset, kv_len, window;
+  int S, H, Hkv, Dh, page_size, num_pages, q_offset, kv_len, window;
   bool causal;
+  bool vec;  // paged entry: pools 16-byte aligned in pointer and strides
+  bool tma;  // paged entry: K/V tiles staged by TMA boxes of box_t tokens
+  int box_t;
+  int pg_cap;  // paged entry: most page ids one block's key range spans
+  int nsm;     // paged entry: the card's SMs
   int64_t k_sb, k_sp, k_st, k_sh, v_sb, v_sp, v_st, v_sh;
   float scale;
 };
 
-template <bool kPaged>
-__device__ __forceinline__ int64_t kv_offset(const Args& a, int b, int pos,
-                                             int64_t sb, int64_t sp,
-                                             int64_t st) {
-  if (kPaged) {
-    return (int64_t)a.pages[pos / a.page_size] * sp +
-           (int64_t)(pos % a.page_size) * st;
-  }
-  return (int64_t)b * sb + (int64_t)pos * st;
-}
+// -- contiguous form: float32 CUDA cores -------------------------------------
 
-// kPaged selects the engine entry point: paged K/V addressing and the
-// bf16-rounded numerics of blockwise_attention.
-template <typename T, bool kPaged>
+constexpr int kThreads = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
+constexpr int kRows = 64;      // query rows (position x head) per block
+constexpr int kKeys = 64;      // keys per tile
+constexpr int kDC = kMaxDh / 16;
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const Args a) {
+flash_prefill_f32_kernel(const Args a) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -113,11 +129,9 @@ flash_prefill_kernel(const Args a) {
   for (int e = tid; e < kRows * Dh; e += kThreads) {
     const int r = e / Dh, d = e - r * Dh, i = r / G, g = r - i * G;
     float val = 0.f;
-    if (r < R && q0 + i < a.S) {
+    if (r < R && q0 + i < a.S)
       val = to_f32(qg[(((int64_t)b * a.S + q0 + i) * a.H + kvh * G + g) *
                           Dh + d]);
-      if (kPaged) val = round_bf16(val);
-    }
     q_s[r * DhP + d] = val;
   }
 
@@ -127,10 +141,10 @@ flash_prefill_kernel(const Args a) {
   for (int j = 0; j < 4; ++j) {
     const int r = ty + 16 * j, i = r / G;
     row_ok[j] = r < R && q0 + i < a.S;
-    qpos[j] = a.q_offset + q0 + i;
+    qpos[j] = q0 + i;
   }
-  const int qmin = a.q_offset + q0;
-  const int qmax = a.q_offset + min(q0 + BQ, a.S) - 1;
+  const int qmin = q0;
+  const int qmax = min(q0 + BQ, a.S) - 1;
   const int k_hi = a.causal ? min(qmax + 1, a.kv_len) : a.kv_len;
   const int k_lo = a.window > 0 ? max(0, qmin - a.window + 1) : 0;
 
@@ -162,16 +176,13 @@ flash_prefill_kernel(const Args a) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[j][c] *= a.scale;
   };
-  auto stage = [&](const T* src, float* dst, int stride, int kb,
-                   int64_t sb, int64_t sp, int64_t st) {
+  auto stage = [&](const T* src, float* dst, int stride, int kb, int64_t sb,
+                   int64_t st) {
     for (int e = tid; e < kKeys * Dh; e += kThreads) {
       const int t = e / Dh, d = e - t * Dh, pos = kb + t;
-      float val = 0.f;
-      if (pos < k_hi) {
-        val = to_f32(src[kv_offset<kPaged>(a, b, pos, sb, sp, st) + d]);
-        if (kPaged) val = round_bf16(val);
-      }
-      dst[t * stride + d] = val;
+      dst[t * stride + d] =
+          pos < k_hi ? to_f32(src[(int64_t)b * sb + (int64_t)pos * st + d])
+                     : 0.f;
     }
   };
 
@@ -184,7 +195,7 @@ flash_prefill_kernel(const Args a) {
   }
   for (int kb = k_lo; kb < k_hi; kb += kKeys) {
     __syncthreads();  // the previous tile is no longer read
-    stage(kg, k_s, DhP, kb, a.k_sb, a.k_sp, a.k_st);
+    stage(kg, k_s, DhP, kb, a.k_sb, a.k_st);
     __syncthreads();
     float s[4][4];
     scores(s);
@@ -224,22 +235,17 @@ flash_prefill_kernel(const Args a) {
     for (int c = 0; c < kDC; ++c) acc[j][c] = 0.f;
   for (int kb = k_lo; kb < k_hi; kb += kKeys) {
     __syncthreads();
-    stage(kg, k_s, DhP, kb, a.k_sb, a.k_sp, a.k_st);
-    stage(vg, v_s, Dh, kb, a.v_sb, a.v_sp, a.v_st);
+    stage(kg, k_s, DhP, kb, a.k_sb, a.k_st);
+    stage(vg, v_s, Dh, kb, a.v_sb, a.v_st);
     __syncthreads();
     float s[4][4];
     scores(s);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float p = 0.f;
-        if (valid(j, kb + tx + 16 * c)) {
-          p = expf(s[j][c] - m[j]) / l[j];
-          if (kPaged) p = round_bf16(p);
-        }
-        p_s[(ty + 16 * j) * (kKeys + 1) + tx + 16 * c] = p;
-      }
+      for (int c = 0; c < 4; ++c)
+        p_s[(ty + 16 * j) * (kKeys + 1) + tx + 16 * c] =
+            valid(j, kb + tx + 16 * c) ? expf(s[j][c] - m[j]) / l[j] : 0.f;
     __syncthreads();
     for (int t = 0; t < kKeys; ++t) {
       float pv[4];
@@ -271,32 +277,434 @@ flash_prefill_kernel(const Args a) {
   }
 }
 
-template <typename T, bool kPaged>
-int launch(const Args& a, int B, cudaStream_t stream) {
+// -- engine form: bf16 tensor cores -----------------------------------------
+
+constexpr int kMmaWarps = 4;  // each owns 16 of the tile's 64 rows
+constexpr int kMmaRows = 16 * kMmaWarps;
+constexpr int kMmaKeys = 128;  // keys per staged tile: 16 n-tiles of 8
+constexpr int kStages = 2;    // K/V buffers: tiles staged kStages - 1 ahead
+constexpr int kNT = kMmaKeys / 8;  // 8-key n-tiles of a key tile
+
+using tma::smem_u32;
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// c += a b: m16n8k16, bf16 operands, float32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// 2^x by the SFU alone (relative error ~2^-22; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// up to 8 consecutive elements of a row as floats (zeros past n)
+__device__ __forceinline__ void load8(const float* p, int n, bool vec,
+                                      float (&x)[8]) {
+  if (vec) {  // n is a multiple of 4
+    const float4 lo = n >= 4 ? *reinterpret_cast<const float4*>(p)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 hi = n >= 8 ? *reinterpret_cast<const float4*>(p + 4)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+    x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = e < n ? p[e] : 0.f;
+  }
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, int n, bool,
+                                      float (&x)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = e < n ? __bfloat162float(p[e]) : 0.f;
+}
+__device__ __forceinline__ uint4 pack8(const float (&x)[8]) {
+  return make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                    pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+}
+
+// DP: Dh padded to a multiple of 16 (the mma depth)
+template <typename T, int DP>
+__global__ void __launch_bounds__((kMmaWarps + 1) * 32)
+flash_prefill_mma_kernel(const __grid_constant__ Args a) {
+  constexpr int LD = DP + 8;   // bf16 per staged row: ldmatrix without
+  constexpr int KD = DP / 16;  //   bank conflicts; k-steps of Q K^T
+  constexpr int ND = DP / 8;   // n-tiles of P V
+  constexpr int kTileElems = kMmaKeys * LD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_s = q_s + kMmaRows * LD;           // kStages buffers
+  __nv_bfloat16* v_s = k_s + kStages * kTileElems;    // kStages buffers
+  // full[b]: buffer b's tile has landed; empty[b]: every compute warp is
+  // done reading it
+  uint64_t* full_s = reinterpret_cast<uint64_t*>(v_s + kStages * kTileElems);
+  uint64_t* empty_s = full_s + kStages;
+  int* pg_s = reinterpret_cast<int*>(empty_s + kStages);  // the page ids
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  // Blocks start in launch order, one on each SM and then a second: the
+  // first nsm take the heaviest tiles (the latest positions see the most
+  // keys) and the next ones the lightest, so that the two tiles sharing an
+  // SM add up to about the same work.
+  const int nqt = gridDim.x, n_items = nqt * gridDim.y;
+  const int item = blockIdx.y * nqt + blockIdx.x;
+  const int top = min(n_items, 2 * a.nsm);
+  const int rank = item < a.nsm || item >= top ? item
+                                               : top - 1 - (item - a.nsm);
+  const int kvh = rank % a.Hkv;
+  const int G = a.H / a.Hkv, Dh = a.Dh;
+  const int BQ = kMmaRows / G, R = BQ * G;  // positions and rows of the tile
+  const int q0 = (nqt - 1 - rank / a.Hkv) * BQ;
+  const int nch = (Dh + 7) / 8;  // 8-element pieces of a head slice
+
+  // this thread's two rows: warp * 16 + gid and + 8
+  int qpos[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + gid + 8 * h, i = r / G;
+    row_ok[h] = r < R && q0 + i < a.S;
+    qpos[h] = a.q_offset + q0 + i;
+  }
+  const int qmin = a.q_offset + q0;
+  const int qmax = a.q_offset + min(q0 + BQ, a.S) - 1;
+  const int k_hi = min(qmax + 1, a.kv_len);
+  const int k_lo = a.window > 0 ? max(0, qmin - a.window + 1) : 0;
+  // key tiles start at multiples of kMmaKeys, so that they are whole pages
+  const int tile_lo = k_lo / kMmaKeys * kMmaKeys;
+  const int nt = (k_hi - tile_lo + kMmaKeys - 1) / kMmaKeys;
+  const int ps = a.page_size, pg0 = tile_lo / ps;
+
+  constexpr int kThreads = (kMmaWarps + 1) * 32;
+  // q rounded to bf16, pad columns and rows past the tile zero (they add
+  // nothing to Q K^T); row r = i * G + g is position q0 + i, head kvh*G + g.
+  // Without TMA the K/V buffers are zeroed too, so that their pad columns
+  // stay zero. And the block's page ids, read once.
+  {
+    const T* qg = static_cast<const T*>(a.q);
+    for (int e = tid; e < kMmaRows * (LD / 8); e += kThreads) {
+      const int r = e / (LD / 8), c = e - r * (LD / 8), i = r / G,
+                g = r - i * G;
+      float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (c < nch && r < R && q0 + i < a.S)
+        load8(qg + ((int64_t)(q0 + i) * a.H + kvh * G + g) * Dh + 8 * c,
+              min(8, Dh - 8 * c), false, x);
+      *reinterpret_cast<uint4*>(q_s + r * LD + 8 * c) = pack8(x);
+    }
+    if (!a.tma) {
+      uint4* z = reinterpret_cast<uint4*>(k_s);
+      for (int e = tid; e < 2 * kStages * kTileElems / 8; e += kThreads)
+        z[e] = make_uint4(0, 0, 0, 0);
+    }
+    const int npg = (k_hi - 1) / ps - pg0 + 1;
+    for (int e = tid; e < npg; e += kThreads) pg_s[e] = a.pages[pg0 + e];
+    if (tid < kStages) {
+      tma::mbar_init(&full_s[tid], a.tma ? 1 : 32);
+      tma::mbar_init(&empty_s[tid], kMmaWarps);
+    }
+    tma::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const T* kg = static_cast<const T*>(a.k) + (int64_t)kvh * a.k_sh;
+  const T* vg = static_cast<const T*>(a.v) + (int64_t)kvh * a.v_sh;
+  const bool ps_pow2 = (ps & (ps - 1)) == 0;
+  const int ps_log = __ffs(ps) - 1;
+
+  // The producer warp stages tile after tile: step < nt is pass 1 (K),
+  // else pass 2 (K and V) of tile step % nt, into buffer step % kStages
+  // once the compute warps have released that buffer's previous tile.
+  if (warp == kMmaWarps) {
+    // through registers (float32 pools, or layouts TMA does not take):
+    // lane converts piece lane % nch of every tpp-th token from lane / nch,
+    // zeros at positions >= k_hi
+    const int tpp = 32 / nch, my_c = lane % nch, my_t = lane / nch;
+    auto copy_tile = [&](const T* src, __nv_bfloat16* dst, int kb,
+                         int64_t sp, int64_t st) {
+      if (my_t >= tpp) return;
+      for (int t = my_t; t < kMmaKeys; t += tpp) {
+        const int pos = kb + t;
+        float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (pos < k_hi) {
+          const int pi = ps_pow2 ? pos >> ps_log : pos / ps;
+          load8(src + (int64_t)pg_s[pi - pg0] * sp +
+                    (int64_t)(pos - pi * ps) * st + 8 * my_c,
+                min(8, Dh - 8 * my_c), a.vec, x);
+        }
+        *reinterpret_cast<uint4*>(dst + t * LD + 8 * my_c) = pack8(x);
+      }
+    };
+    for (int step = 0; step < 2 * nt; ++step) {
+      const int buf = step % kStages, kb = tile_lo + (step % nt) * kMmaKeys;
+      const bool with_v = step >= nt;
+      if (step >= kStages)
+        tma::mbar_wait(&empty_s[buf], (step / kStages - 1) & 1);
+      if (a.tma) {  // one box per page that holds keys below k_hi
+        if (lane != 0) continue;
+        const int bt = a.box_t;
+        const int n_box = min(kMmaKeys / bt, (k_hi - kb + bt - 1) / bt);
+        tma::mbar_arrive_expect(&full_s[buf],
+                           n_box * bt * LD * 2 * (with_v ? 2 : 1));
+        for (int j = 0; j < n_box; ++j) {
+          const int pos = kb + j * bt;
+          const int pi = ps_pow2 ? pos >> ps_log : pos / ps;
+          const int page = pg_s[pi - pg0], tok = pos - pi * ps;
+          tma::load_3d(k_s + buf * kTileElems + j * bt * LD, &a.kmap, kvh * Dh,
+                   tok, page, &full_s[buf]);
+          if (with_v)
+            tma::load_3d(v_s + buf * kTileElems + j * bt * LD, &a.vmap,
+                     kvh * Dh, tok, page, &full_s[buf]);
+        }
+      } else {  // every lane arrives after its own stores
+        copy_tile(kg, k_s + buf * kTileElems, kb, a.k_sp, a.k_st);
+        if (with_v)
+          copy_tile(vg, v_s + buf * kTileElems, kb, a.v_sp, a.v_st);
+        tma::mbar_arrive(&full_s[buf]);
+      }
+    }
+    return;
+  }
+
+  // softmax in base 2: p = 2^(s c - m) with c = scale * log2(e), m the
+  // running max of s c; pass 2 multiplies by 1 / l. (blockwise_attention
+  // takes exp(s * scale - m) / l: this differs in float32 rounding only,
+  // ~1e-6 of p, far below p's rounding to bf16; an expf and a true
+  // division cost twice the kernel's time.)
+  const float c2 = a.scale * 1.4426950408889634f;
+  // the positions of the warp's rows, to find the tiles that need no mask
+  const int r_last = warp * 16 + 15;
+  const bool warp_ok = r_last < R && q0 + r_last / G < a.S;
+  const int p_lo = a.q_offset + q0 + (warp * 16) / G;
+  const int p_hi = a.q_offset + q0 + r_last / G;
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)  // q fragments, held for the whole kernel
+    ldmatrix_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * LD + 16 * kk +
+                            (lane >> 4) * 8);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int step = 0; step < 2 * nt; ++step) {
+    // this step's tile is in: its buffer's k-th fill completes phase k
+    const int buf = step % kStages, kb = tile_lo + (step % nt) * kMmaKeys;
+    tma::mbar_wait(&full_s[buf], (step / kStages) & 1);
+    if (a.tma && step == 2 * nt - 1 && kb + kMmaKeys > k_hi) {
+      // the last tile's page holds rows past the context that p v would
+      // multiply by 0: make them zeros, not whatever the pool holds
+      uint4* vz = reinterpret_cast<uint4*>(v_s + buf * kTileElems);
+      for (int i = (k_hi - kb) * LD / 8 + tid; i < kTileElems / 8;
+           i += kMmaWarps * 32)
+        vz[i] = make_uint4(0, 0, 0, 0);
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kMmaWarps * 32) : "memory");
+    }
+    if (step == nt) {  // merge the four lanes of each row
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          const float mo = __shfl_xor_sync(0xffffffffu, m[h], off);
+          const float lo = __shfl_xor_sync(0xffffffffu, l[h], off);
+          const float mm = fmaxf(m[h], mo);
+          l[h] = l[h] * exp2f(m[h] - mm) + lo * exp2f(mo - mm);
+          m[h] = mm;
+        }
+        l[h] = 1.f / fmaxf(l[h], 1e-9f);  // from here on, 1 / l
+      }
+    }
+    const __nv_bfloat16* kt = k_s + buf * kTileElems;
+
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
+    float s[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < kNT / 2; ++jp) {
+        uint32_t b[4];
+        ldmatrix_x4(b, kt + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                           16 * kk + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+      }
+    }
+    // mask: s[j][2h + e] is row h's key kb + 8j + 2 tig + e (a masked
+    // score becomes -inf); a tile wholly inside every row's range of the
+    // warp needs none
+    const bool full = warp_ok && kb + kMmaKeys - 1 <= p_lo &&
+                      (a.window <= 0 || kb > p_hi - a.window);
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int pos = kb + 8 * j + 2 * tig + e;
+            const bool ok = row_ok[h] && pos < k_hi && pos <= qpos[h] &&
+                            (a.window <= 0 || pos > qpos[h] - a.window);
+            if (!ok) s[j][2 * h + e] = kMinusInf;
+          }
+    }
+
+    if (step < nt) {  // pass 1: running max and sum of this thread's keys
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mt = kMinusInf;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+          mt = fmaxf(mt, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+        const float m_new = fmaxf(m[h], mt * c2);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+          sum += ex2(fmaf(s[j][2 * h], c2, -m_new)) +
+                 ex2(fmaf(s[j][2 * h + 1], c2, -m_new));
+        l[h] = l[h] * exp2f(m[h] - m_new) + sum;
+        m[h] = m_new;
+      }
+    } else {  // pass 2: p rounded to bf16 in the A layout, then O += P V
+      const __nv_bfloat16* vt = v_s + buf * kTileElems;
+#pragma unroll
+      for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
+        uint32_t pa[4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float* c = s[2 * kk + half];
+          pa[2 * half] = pack_bf16(ex2(fmaf(c[0], c2, -m[0])) * l[0],
+                                   ex2(fmaf(c[1], c2, -m[0])) * l[0]);
+          pa[2 * half + 1] = pack_bf16(ex2(fmaf(c[2], c2, -m[1])) * l[1],
+                                       ex2(fmaf(c[3], c2, -m[1])) * l[1]);
+        }
+#pragma unroll
+        for (int jd = 0; jd < ND / 2; ++jd) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(
+              b, vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                     16 * jd + (lane >> 4) * 8);
+          mma_bf16(o[2 * jd], pa, b[0], b[1]);
+          mma_bf16(o[2 * jd + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+    __syncwarp();  // the warp is done reading this buffer
+    if (lane == 0) tma::mbar_arrive(&empty_s[buf]);
+  }
+
+  T* og = static_cast<T*>(a.out);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!row_ok[h]) continue;
+    const int r = warp * 16 + gid + 8 * h, i = r / G, g = r - i * G;
+    T* orow = og + ((int64_t)(q0 + i) * a.H + kvh * G + g) * Dh;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * j + 2 * tig + e;
+        if (d < Dh) store(orow + d, o[j][2 * h + e]);
+      }
+  }
+}
+
+template <typename T>
+int launch_f32(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)(kRows + kKeys) * (a.Dh + 1) + (size_t)kKeys * a.Dh +
        (size_t)kRows * (kKeys + 1));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_kernel<T, kPaged>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  int e = tma::allow_smem((const void*)flash_prefill_f32_kernel<T>, smem);
+  if (e) return e;
   const int bq = kRows / (a.H / a.Hkv);
   dim3 grid((a.S + bq - 1) / bq, a.Hkv, B);
-  flash_prefill_kernel<T, kPaged><<<grid, kThreads, smem, stream>>>(a);
+  flash_prefill_f32_kernel<T><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool kPaged>
-int dispatch(const Args& a, int B, int dtype, void* stream) {
+template <typename T, int DP>
+int launch_mma(Args a, cudaStream_t stream) {
+  // TMA for bf16 pools whose heads are contiguous (a token's K row is one
+  // run of Hkv * Dh), 16-byte aligned, whose pages split into boxes of a
+  // multiple of 8 tokens that tile the key tiles; a layout that qualifies
+  // but does not encode is an error
+  const int bt = a.page_size < kMmaKeys ? a.page_size : kMmaKeys;
+  a.tma = sizeof(T) == 2 && a.vec && a.k_sh == a.Dh && a.v_sh == a.Dh &&
+          a.page_size % bt == 0 && kMmaKeys % bt == 0 && bt % 8 == 0;
+  a.box_t = bt;
+  if (a.tma) {
+    int e = tma::encode_pool(&a.kmap, a.k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                             2, a.Hkv * a.Dh, a.page_size, a.num_pages,
+                             a.k_st, a.k_sp, DP + 8, bt);
+    if (e == 0)
+      e = tma::encode_pool(&a.vmap, a.v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                           a.Hkv * a.Dh, a.page_size, a.num_pages, a.v_st,
+                           a.v_sp, DP + 8, bt);
+    if (e) return e;
+  }
+  const size_t smem =
+      sizeof(__nv_bfloat16) * (size_t)(kMmaRows + 2 * kStages * kMmaKeys) *
+          (DP + 8) +
+      sizeof(uint64_t) * 2 * kStages + sizeof(int) * (size_t)a.pg_cap;
+  int e = tma::allow_smem((const void*)flash_prefill_mma_kernel<T, DP>,
+                          smem);
+  if (e) return e;
+  const int bq = kMmaRows / (a.H / a.Hkv);
+  dim3 grid((a.S + bq - 1) / bq, a.Hkv, 1);
+  flash_prefill_mma_kernel<T, DP>
+      <<<grid, (kMmaWarps + 1) * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_paged(Args a, cudaStream_t stream) {
+  const int e = tma::sm_count(&a.nsm);
+  if (e) return e;
+  const int64_t esz = sizeof(T);
+  const auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  a.vec = al(a.k) && al(a.v) && (a.Dh * esz) % 16 == 0 &&
+          (a.k_sp * esz) % 16 == 0 && (a.k_st * esz) % 16 == 0 &&
+          (a.k_sh * esz) % 16 == 0 && (a.v_sp * esz) % 16 == 0 &&
+          (a.v_st * esz) % 16 == 0 && (a.v_sh * esz) % 16 == 0;
+  // a block's keys span at most kMmaRows - 1 + window positions, from a
+  // tile start up to kMmaKeys - 1 before them
+  const int wspan = a.window + kMmaRows - 1 + kMmaKeys - 1;
+  const int span = a.window > 0 && wspan < a.kv_len ? wspan : a.kv_len;
+  a.pg_cap = span / a.page_size + 2;
+  if (a.Dh <= 32) return launch_mma<T, 32>(a, stream);
+  if (a.Dh <= 64) return launch_mma<T, 64>(a, stream);
+  if (a.Dh <= 80) return launch_mma<T, 80>(a, stream);
+  return launch_mma<T, 128>(a, stream);
+}
+
+bool bad_shape(const Args& a) {
   const int G = a.Hkv > 0 ? a.H / a.Hkv : 0;
-  if (G < 1 || G > kRows || a.H % a.Hkv || a.Dh < 1 || a.Dh > kMaxDh)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, kPaged>(a, B, s);
-  if (dtype == 1) return launch<__nv_bfloat16, kPaged>(a, B, s);
-  return (int)cudaErrorInvalidValue;
+  return G < 1 || G > kRows || a.H % a.Hkv || a.Dh < 1 || a.Dh > kMaxDh;
 }
 
 }  // namespace
@@ -304,7 +712,8 @@ int dispatch(const Args& a, int B, int dtype, void* stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and the output share it).
-// window <= 0 means no window. Each returns a cudaError_t (0 = launched).
+// window <= 0 means no window. Each returns 0 once launched, else a
+// cudaError_t or tma::kEncodeError + a CUresult.
 
 // The TPU kernel's function: q (B, S, H, Dh) contiguous; k, v
 // (B, Skv, Hkv, Dh) with strides (sb, st, sh, 1).
@@ -321,32 +730,42 @@ int flash_prefill_contiguous(const void* q, const void* k, const void* v,
   a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
   a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
   a.scale = scale;
-  return dispatch<false>(a, B, dtype, stream);
+  if (bad_shape(a)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_f32<float>(a, B, s);
+  if (dtype == 1) return launch_f32<__nv_bfloat16>(a, B, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // One engine prefill chunk: q (1, S, H, Dh) contiguous at positions
 // q_offset..q_offset+S-1; K/V of context position k at
-// pages[k / ps]*sp + (k % ps)*st + h*sh + d; causal over kv_len =
-// q_offset + S keys.
+// pages[k / ps]*sp + (k % ps)*st + h*sh + d, for pages < num_pages; causal
+// over kv_len = q_offset + S keys.
 int flash_prefill_paged(const void* q, const void* k_pool,
                         const void* v_pool, const int32_t* pages, void* out,
                         int S, int H, int Hkv, int Dh, int page_size,
-                        int q_offset, int window, int64_t k_sp, int64_t k_st,
+                        int num_pages, int q_offset, int window, int64_t k_sp,
+                        int64_t k_st,
                         int64_t k_sh, int64_t v_sp, int64_t v_st,
                         int64_t v_sh, float scale, int dtype, void* stream) {
   Args a = {};
   a.q = q; a.k = k_pool; a.v = v_pool; a.pages = pages; a.out = out;
   a.S = S; a.H = H; a.Hkv = Hkv; a.Dh = Dh; a.page_size = page_size;
+  a.num_pages = num_pages;
   a.q_offset = q_offset; a.kv_len = q_offset + S; a.window = window;
   a.causal = true;
   a.k_sp = k_sp; a.k_st = k_st; a.k_sh = k_sh;
   a.v_sp = v_sp; a.v_st = v_st; a.v_sh = v_sh;
   a.scale = scale;
-  return dispatch<true>(a, 1, dtype, stream);
+  if (bad_shape(a)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_paged<float>(a, s);
+  if (dtype == 1) return launch_paged<__nv_bfloat16>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* flash_prefill_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return tma::error_string(err);
 }
 
 }  // extern "C"

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` into ``build/<name>-<hash>.so`` at the root of
-the checkout (``build/`` is git-ignored). The hash covers the source and
-the flags, so an edited source rebuilds and a stale library is never
-loaded. Nothing here runs when the module is imported.
+the checkout (``build/`` is git-ignored). The hash covers the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or header
+rebuilds and a stale library is never loaded. Nothing here runs when the
+module is imported.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -24,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_RAW_STREAM = []  # torch's getter of a device's current cudaStream_t
 
 
 def nvcc() -> str:
@@ -41,7 +45,10 @@ def nvcc() -> str:
 
 def _paths(name: str) -> Tuple[Path, Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    # the shared headers of csrc/ count as part of every source
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{digest}.so", \
         BUILD_DIR / f"{name}-{digest}.log"
@@ -75,3 +82,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_paths(name)[1]))
         _LIBS[name] = lib
     return lib
+
+
+def _raw_stream(device: int) -> int:
+    if not _RAW_STREAM:
+        # the raw handle without a Stream object: the getter torch's own
+        # generated kernels use, where this build of torch has it
+        _RAW_STREAM.append(getattr(
+            torch._C, "_cuda_getCurrentRawStream",
+            lambda d: torch.cuda.current_stream(d).cuda_stream))
+    return _RAW_STREAM[0](device)
+
+
+def call(fn, device: int, *args) -> int:
+    """Call the C entry point ``fn`` with ``args`` and then the current
+    stream of CUDA device ``device``, with that device current (a kernel
+    launches on the current device). Returns what ``fn`` returns."""
+    if torch.cuda.current_device() != device:
+        with torch.cuda.device(device):
+            return fn(*args, _raw_stream(device))
+    return fn(*args, _raw_stream(device))

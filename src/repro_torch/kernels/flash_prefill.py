@@ -40,7 +40,7 @@ def _lib():
             p, p, p, p, i32, i32, i32, i32, i32, i32, i32, i32,
             i64, i64, i64, i64, i64, i64, f32, i32, p]
         lib.flash_prefill_paged.argtypes = [
-            p, p, p, p, p, i32, i32, i32, i32, i32, i32, i32,
+            p, p, p, p, p, i32, i32, i32, i32, i32, i32, i32, i32,
             i64, i64, i64, i64, i64, i64, f32, i32, p]
         lib.flash_prefill_contiguous.restype = ctypes.c_int
         lib.flash_prefill_paged.restype = ctypes.c_int
@@ -83,7 +83,7 @@ def _check_common(fn, q, k, v):
 def _raise_on(lib, err):
     if err != 0:
         msg = lib.flash_prefill_error_string(err).decode()
-        raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error "
+        raise RuntimeError(f"flash_prefill kernel launch failed: error "
                            f"{err} ({msg})")
 
 
@@ -107,14 +107,13 @@ def flash_prefill(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     if q.numel():  # with no keys the kernel writes zeros
         lib = _lib()
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.flash_prefill_contiguous(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, s, h, k.shape[2], dh, k.shape[1], int(causal),
-                window or 0, k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2), 1.0 / dh ** 0.5,
-                _DTYPES[q.dtype], stream)
+        err = _build.call(
+            lib.flash_prefill_contiguous, q.get_device(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, h, k.shape[2], dh, k.shape[1], int(causal),
+            window or 0, k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), 1.0 / dh ** 0.5,
+            _DTYPES[q.dtype])
         _raise_on(lib, err)
         flash_prefill.launches += 1
     return out
@@ -157,15 +156,14 @@ def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
     out = torch.empty_like(q)
     if s:
         lib = _lib()
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.flash_prefill_paged(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                page_ids.data_ptr(), out.data_ptr(), s, h, k_pool.shape[2],
-                dh, ps, q_offset, window or 0, k_pool.stride(0),
-                k_pool.stride(1), k_pool.stride(2), v_pool.stride(0),
-                v_pool.stride(1), v_pool.stride(2), 1.0 / dh ** 0.5,
-                _DTYPES[q.dtype], stream)
+        ks, vs = k_pool.stride(), v_pool.stride()
+        err = _build.call(
+            lib.flash_prefill_paged, q.get_device(),
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_ids.data_ptr(), out.data_ptr(), s, h, k_pool.shape[2],
+            dh, ps, k_pool.shape[0], q_offset, window or 0,
+            ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], 1.0 / dh ** 0.5,
+            _DTYPES[q.dtype])
         _raise_on(lib, err)
         flash_prefill.launches += 1
     return out

@@ -52,6 +52,27 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     return out
 
 
+def merge_partials(os, ms, ls):
+    """Merge attention partials over disjoint key ranges: the plain version
+    of ``paged_attention``'s merge of its context splits, by the rule of
+    ``repro.core.distkv.dist_attention.merge_partials_tree``.
+
+    os: sequence of unnormalised outputs (..., Dh); ms, ls: sequences of
+    the matching running max and sum of exponentials (...), float32. A
+    partial over no valid key has o = 0, m = -1e30 and l = 0. Returns the
+    normalised output (l floored at 1e-9) and the merged m and l (the
+    global max and the sum rescaled to it), all float32.
+    """
+    m = torch.stack([x.float() for x in ms]).amax(dim=0)
+    o = torch.zeros_like(os[0], dtype=torch.float32)
+    l = torch.zeros_like(m)
+    for oi, mi, li in zip(os, ms, ls):
+        corr = torch.exp(mi.float() - m)
+        l = l + li.float() * corr
+        o = o + oi.float() * corr[..., None]
+    return o / l.clamp_min(1e-9)[..., None], m, l
+
+
 def flash_prefill(q, k, v, *, causal: bool = True,
                   window: Optional[int] = None):
     """Flash-attention forward, as the Pallas kernel ``_flash_kernel``

@@ -89,13 +89,12 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
     state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
     if b and l and h:
         lib = _lib()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.ssd_scan_fwd(
-                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                C.data_ptr(), y.data_ptr(), state.data_ptr(), b, l, h, p,
-                B.shape[2], n, chunk, x.stride(0), x.stride(1), B.stride(0),
-                B.stride(1), _DTYPES[x.dtype], stream)
+        err = _build.call(
+            lib.ssd_scan_fwd, x.get_device(),
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), state.data_ptr(), b, l, h, p,
+            B.shape[2], n, chunk, x.stride(0), x.stride(1), B.stride(0),
+            B.stride(1), _DTYPES[x.dtype])
         if err != 0:
             msg = lib.ssd_scan_error_string(err).decode()
             raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "

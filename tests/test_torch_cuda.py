@@ -22,11 +22,14 @@ import torch
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                prefill_attention_paged)
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import SPLIT_TOKENS, paged_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=3e-2, atol=3e-2)
+# a bf16 result of float32 math against the plain version's: at most one
+# bf16 rounding apart (2**-7 of the value) plus the float32 difference
+BF16_OUT = dict(rtol=2.0 ** -7, atol=1e-5)
 
 
 def _inputs(b, h, hkv, dh, ps, nper, seed=0):
@@ -57,7 +60,9 @@ def cuda():
 @pytest.mark.parametrize(
     "b,h,hkv,dh,ps,nper",
     [(3, 8, 2, 64, 16, 8), (2, 8, 1, 64, 16, 4), (4, 32, 8, 80, 16, 9),
-     (2, 4, 4, 80, 8, 6)])
+     (2, 4, 4, 80, 8, 6),
+     # the widest rows a TMA box takes, then rows staged element by element
+     (2, 8, 2, 240, 16, 3), (2, 8, 2, 256, 16, 3)])
 def test_cuda_kernel_matches_plain(cuda, b, h, hkv, dh, ps, nper, window,
                                    dtype):
     q, kp, vp, bt, lens = _inputs(b, h, hkv, dh, ps, nper, seed=5)
@@ -75,6 +80,63 @@ def test_cuda_kernel_matches_plain(cuda, b, h, hkv, dh, ps, nper, window,
     torch.testing.assert_close(out.float(), wo.float(), **tol)
     torch.testing.assert_close(m, wm, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-4)
+
+
+def _split_inputs(lens, h, hkv, dh, ps, seed):
+    """Inputs whose block tables cover the longest context, pages in random
+    order and distinct."""
+    rng = np.random.default_rng(seed)
+    b, n = len(lens), max(1, max(-(-x // ps) for x in lens))
+    npages = b * n + 3
+    q = rng.standard_normal((b, h, dh)).astype(np.float32)
+    kp = rng.standard_normal((npages, ps, hkv, dh)).astype(np.float32)
+    vp = rng.standard_normal((npages, ps, hkv, dh)).astype(np.float32)
+    bt = rng.permutation(npages)[:b * n].reshape(b, n).astype(np.int32)
+    return q, kp, vp, bt, np.asarray(lens, np.int32)
+
+
+# contexts around one split and over several, beside an empty row; then a
+# window that starts mid-page several splits into a long context; then a
+# context past danube's 4096-token window
+_SPLIT = SPLIT_TOKENS
+_SPLIT_CASES = [
+    ([_SPLIT - 1, _SPLIT, _SPLIT + 1, 3 * _SPLIT + 7, 0, 5], None),
+    ([4 * _SPLIT + 10, 0, 2 * _SPLIT + 3], 2 * _SPLIT - 37),
+    ([4096 + 300, 4096, 77, 0], 4096),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("lens,window", _SPLIT_CASES)
+def test_cuda_kernel_split_contexts_match_plain(cuda, lens, window, g,
+                                                dtype):
+    """Contexts split over several blocks and merged on the card: at a
+    split's size - 1, size and size + 1, over several splits, with a window
+    and past danube's window, GQA groups of 1-8 heads; the merged (m, l)
+    equal the unsplit plain version's."""
+    hkv, dh, ps = 8 // g if g < 8 else 1, 80, 16
+    q, kp, vp, bt, lens = _split_inputs(lens, hkv * g, hkv, dh, ps,
+                                        seed=len(lens) + g)
+    args = [t.to(cuda) for t in _torch(q, kp, vp, bt, lens)]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    before = paged_attention.launches
+    out, m, l = paged_attention(*args, page_size=ps, window=window,
+                                return_partials=True)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    wo, wm, wl = tref.paged_attention(*args, page_size=ps, window=window,
+                                      return_partials=True)
+    tol = F32 if dtype == torch.float32 else BF16
+    torch.testing.assert_close(out.float(), wo.float(), **tol)
+    if dtype == torch.bfloat16:  # long-context outputs are far below 3e-2
+        torch.testing.assert_close(out.float(), wo.float(), **BF16_OUT)
+    torch.testing.assert_close(m, wm, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-4)
+    empty = args[4] == 0
+    assert (out[empty] == 0).all() and (l[empty] == 0).all()
+    assert (m[empty] == tref.NEG_INF).all()
 
 
 @pytest.mark.gpu
@@ -166,6 +228,80 @@ def test_cuda_prefill_attention_paged_matches_plain(cuda, s, q_offset,
     assert flash_prefill.launches == before + 1
     want = tref.prefill_attention_paged(q, k, v, pages, q_offset=q_offset,
                                         window=window)
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize(
+    "s,q_offset,h,hkv,dh",
+    [(1, 0, 32, 8, 80), (15, 3, 32, 8, 80), (33, 64, 32, 8, 80),
+     (100, 29, 24, 8, 80), (70, 5, 12, 4, 64), (40, 17, 8, 2, 32),
+     (57, 90, 16, 4, 128), (129, 0, 4, 4, 64)])
+def test_cuda_prefill_attention_paged_tensor_core_shapes(
+        cuda, s, q_offset, h, hkv, dh, window, dtype):
+    """The engine form's tensor-core tiles at the edges: chunks that are
+    not a multiple of 16 rows, G = 3 (64 rows do not divide into groups),
+    G = 1, head_dim 32 / 64 / 80 / 128, float32 pools (rounded to bf16 as
+    they are staged) and bf16 pools (copied by cp.async)."""
+    ps = 16
+    rng = np.random.default_rng(s * 7 + dh + h)
+    n = -(-(q_offset + s) // ps)
+    npages = n + 4
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (npages, ps, hkv, dh)).astype(np.float32)).to(cuda, dtype)
+        for _ in range(2))
+    pages = torch.from_numpy(rng.permutation(npages)[:n].astype(
+        np.int32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((1, s, h, dh)).astype(
+        np.float32)).to(cuda, dtype)
+    before = flash_prefill.launches
+    got = prefill_attention_paged(q, kp, vp, pages, q_offset=q_offset,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    want = tref.prefill_attention_paged(q, kp, vp, pages, q_offset=q_offset,
+                                        window=window)
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["heads_strided", "page_size_24"])
+def test_cuda_kernels_stage_layouts_tma_does_not_take(cuda, layout, dtype):
+    """Both kernels stage K/V by TMA boxes of whole pages when the pool's
+    heads are contiguous and its pages split into 8-token multiples; other
+    layouts are staged element by element: a pool whose head slices are
+    spaced apart, and 24-token pages."""
+    h, hkv, dh = 32, 8, 80
+    ps = 24 if layout == "page_size_24" else 16
+    pad = 16 if layout == "heads_strided" else 0
+    rng = np.random.default_rng(ps + pad)
+    lens = np.array([5, 200, 0, 333], np.int32)
+    nper = -(-int(lens.max()) // ps)
+    npages = 4 * nper + 2
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (npages, ps, hkv, dh + pad)).astype(np.float32)).to(cuda, dtype)
+        [..., :dh] for _ in range(2))
+    bt = torch.from_numpy(rng.permutation(npages)[:4 * nper].reshape(
+        4, nper).astype(np.int32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((4, h, dh)).astype(
+        np.float32)).to(cuda, dtype)
+    ctx = torch.from_numpy(lens).to(cuda)
+    got = paged_attention(q, kp, vp, bt, ctx, page_size=ps, window=100)
+    want = tref.paged_attention(q, kp, vp, bt, ctx, page_size=ps,
+                                window=100)
+    tol = F32 if dtype == torch.float32 else BF16
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    s, q_offset = 70, 90
+    qp = torch.from_numpy(rng.standard_normal((1, s, h, dh)).astype(
+        np.float32)).to(cuda, dtype)
+    pages = bt[1, :-(-(q_offset + s) // ps)].contiguous()
+    got = prefill_attention_paged(qp, kp, vp, pages, q_offset=q_offset,
+                                  window=64)
+    want = tref.prefill_attention_paged(qp, kp, vp, pages,
+                                        q_offset=q_offset, window=64)
     torch.testing.assert_close(got.float(), want.float(), **BF16)
 
 

@@ -141,3 +141,67 @@ def test_wrapper_rejects_mixed_devices():
     q, kp, vp, bt, lens = _torch(*_inputs(1, 4, 2, 32, 8, 2))
     with pytest.raises(ValueError):
         paged_attention(q, kp.to("meta"), vp, bt, lens, page_size=8)
+
+
+@pytest.mark.parametrize("n_parts,masked", [(1, None), (2, None), (3, 1),
+                                            (4, 0), (2, "all")])
+def test_merge_partials_matches_jax_tree(n_parts, masked):
+    """The plain version of the decode kernel's split merge against the JAX
+    ``merge_partials_tree`` on seeded partials, with an all-masked split
+    (o = 0, m = -1e30, l = 0) among them, or every split masked; the
+    merged (m, l) are the global max and the sum rescaled to it."""
+    from repro.core.distkv.dist_attention import merge_partials_tree
+    rng = np.random.default_rng(n_parts)
+    b, h, dh = 3, 4, 16
+    os_ = [rng.standard_normal((b, h, dh)).astype(np.float32)
+           for _ in range(n_parts)]
+    ms = [rng.standard_normal((b, h)).astype(np.float32) * 3
+          for _ in range(n_parts)]
+    ls = [rng.uniform(0.5, 20, (b, h)).astype(np.float32)
+          for _ in range(n_parts)]
+    for i in range(n_parts) if masked == "all" else \
+            ([] if masked is None else [masked]):
+        os_[i][:] = 0
+        ms[i][:] = tref.NEG_INF
+        ls[i][:] = 0
+    o, m, l = tref.merge_partials(*(_torch(*x) for x in (os_, ms, ls)))
+    want = merge_partials_tree([jnp.asarray(x) for x in os_],
+                               [jnp.asarray(x) for x in ms],
+                               [jnp.asarray(x) for x in ls])
+    np.testing.assert_allclose(o.numpy(), np.asarray(want), **F32)
+    m_glob = np.max(np.stack(ms), axis=0)
+    l_glob = sum(li * np.exp(mi - m_glob) for mi, li in zip(ms, ls))
+    np.testing.assert_allclose(m.numpy(), m_glob, **F32)
+    np.testing.assert_allclose(l.numpy(), l_glob, **F32)
+    if masked == "all":
+        assert (o == 0).all() and (l == 0).all()
+
+
+@pytest.mark.parametrize("split_pages", [1, 2, 3])
+@pytest.mark.parametrize("g", [1, 4])
+def test_plain_split_by_page_runs_merges_to_unsplit(split_pages, g):
+    """The decode kernel's scheme in plain PyTorch: each row's context cut
+    into runs of ``split_pages`` whole pages, each run's partials from the
+    plain paged attention, merged by ``merge_partials``, gives the unsplit
+    result, (m, l) included. Rows end at, before and after a run's edge,
+    one is empty (its runs are all masked)."""
+    ps, nper, hkv, dh = 8, 6, 2, 32
+    run = split_pages * ps
+    lens = [run - 1, run, run + 1, nper * ps, 0]
+    q, kp, vp, bt, lens = _inputs(len(lens), hkv * g, hkv, dh, ps, nper,
+                                  seed=split_pages * 10 + g, lens=lens)
+    full, fm, fl = tref.paged_attention(*_torch(q, kp, vp, bt, lens),
+                                        page_size=ps, return_partials=True)
+    os_, ms, ls = [], [], []
+    for p0 in range(0, nper, split_pages):
+        cols = bt[:, p0:p0 + split_pages]
+        ctx = np.clip(lens - p0 * ps, 0, cols.shape[1] * ps).astype(np.int32)
+        o, m, l = tref.paged_attention(*_torch(q, kp, vp, cols, ctx),
+                                       page_size=ps, return_partials=True)
+        os_.append(o * l[..., None])
+        ms.append(m)
+        ls.append(l)
+    o, m, l = tref.merge_partials(os_, ms, ls)
+    torch.testing.assert_close(o, full, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(m, fm, **F32)
+    torch.testing.assert_close(l, fl, rtol=1e-5, atol=1e-5)
