@@ -19,8 +19,10 @@ or the JAX package) and:
    the contiguous form at ``tests/test_kernels.py``'s sweep (causal,
    non-causal, windowed), and the engine form at danube's widths over a
    strided layer slice of a ``(L, P, ps, Hkv, Dh)`` pool, chunks at offset 0
-   and past it. ``ssd_scan`` at the reference test's shapes and at
-   mamba2-1.3b's full width, float32 and bfloat16 x. Tolerances: float32
+   and past it. ``ssd_scan`` at the reference test's shapes, at
+   mamba2-1.3b's full width (4 x 1024 tokens, and one 4096-token prompt:
+   a chain of 16 chunks) and at hymba-1.5b's widths (P 50, N 16), float32
+   and bfloat16 x. Tolerances: float32
    2e-5 and bfloat16 3e-2 (``tests/test_kernels.py``); 3e-2 for the
    engine form of flash_prefill in both types (it rounds its probabilities
    to bfloat16, so a one-ulp score difference can flip a rounding); 2e-4
@@ -48,7 +50,8 @@ or the JAX package) and:
    PyTorch library call computing the same function where there is one,
    and the least time the card could take (its bound), and prints them as
    one JSON line; ``flash_prefill``'s engine form is also timed at each of
-   the kernel phase's chunk shapes, beside SDPA, one line each. The times
+   the kernel phase's chunk shapes, beside SDPA, one line each, and
+   ``ssd_scan`` at one 4096-token prompt beside its timing shape. The times
    in the JSON line are of calls launched back to back from Python, as a
    caller meets them; the card's time alone and the host's time per call
    are printed beside them and kept in the detail line.
@@ -109,10 +112,14 @@ FLASH_SWEEP = [(1, 128, 4, 4, 64, True, None), (2, 256, 8, 2, 64, True, None),
 # the engine form: (chunk length, chunk start); the serve phase's largest
 # chunk is 512 tokens, its longest context 1040
 ENGINE_CHUNKS = [(512, 0), (512, 512), (300, 37), (16, 1024)]
-# ssd_scan: b, l, h, p, g, n, chunk; the reference test's, then mamba2's
-# prefill (4 prompts x 1024 tokens)
+# ssd_scan: b, l, h, p, g, n, chunk; mamba2's prefill (4 prompts x 1024
+# tokens: the timing shape) and one 4096-token prompt (a chain of 16
+# chunks); the reference test's shapes first, hymba-1.5b's widths last
+SSD_TIMING = (4, 1024, 64, 64, 1, 128, 256)
+SSD_LONG = (1, 4096, 64, 64, 1, 128, 256)
 SSD_SHAPES = [(2, 128, 4, 16, 1, 8, 16), (2, 128, 4, 16, 2, 8, 32),
-              (2, 128, 4, 16, 2, 8, 64), (4, 1024, 64, 64, 1, 128, 256)]
+              (2, 128, 4, 16, 2, 8, 64), SSD_TIMING, SSD_LONG,
+              (2, 1024, 64, 50, 1, 16, 256)]
 MAMBA_BATCH, MAMBA_PROMPT, MAMBA_NEW = 4, 1024, 32
 MAMBA_ORACLE_BATCH, MAMBA_ORACLE_PROMPT, MAMBA_ORACLE_NEW = 2, 512, 8
 
@@ -924,14 +931,28 @@ def flash_timing(dev, seed: int, launches: int):
              library_host_us=library_host_us)
 
 
+def ssd_bytes_flops(b, l, h, p, g, n, chunk, dtype):
+    """What one ssd_scan call must move and compute. Bytes: x, dt, A, B, C
+    read once, y and the state written once; operations: per (sequence,
+    head, chunk) the masked scores C_i.B_j and their product with xdt over
+    the j <= i pairs, C S^T and the state update."""
+    esz = torch.finfo(dtype).bits // 8
+    nbytes = b * l * h * p * esz + b * l * h * 4 + h * 4 \
+        + 2 * b * l * g * n * esz + b * l * h * p * 4 + b * h * p * n * 4
+    pairs = chunk * (chunk + 1) // 2
+    flops = b * h * (l // chunk) * (2 * pairs * (n + p) + 4 * chunk * n * p)
+    return nbytes, flops
+
+
 def ssd_timing(dev, seed: int, launches: int):
     """ssd_scan at mamba2-1.3b's prefill shapes (4 x 1024 tokens, 64 heads
     of 64, state 128, one group, chunk 256), bf16 x / B / C; three input
-    sets, cycled, so that no call finds its inputs in the 50 MB L2. No
-    single PyTorch call computes this function: library_ms is null."""
+    sets, cycled, so that no call finds its inputs in the 50 MB L2. Then the
+    kernel alone at one 4096-token prompt (``SSD_LONG``: 16 chunks chained).
+    No single PyTorch call computes this function: library_ms is null."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
-    b, l, h, p, g, n, chunk = SSD_SHAPES[-1]
+    b, l, h, p, g, n, chunk = SSD_TIMING
     dtype = torch.bfloat16
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -945,21 +966,20 @@ def ssd_timing(dev, seed: int, launches: int):
     before = ssd_scan.launches
     ms, device_ms, host_us = cuda_ms(
         lambda i: ssd_scan(*sets[i % 3], chunk=chunk), 9)
-    ssd_scan.launches = before  # timing launches are not the path's
     plain_ms, plain_device_ms, _ = cuda_ms(
         lambda i: ref.ssd_scan(*sets[i % 3], chunk=chunk), 6, warmup=1)
-
-    # bytes: x, dt, A, B, C read once, y and the state written once;
-    # operations: per (sequence, head, chunk) the masked scores C_i.B_j and
-    # their product with xdt over the j <= i pairs, C S^T and the state
-    # update
-    esz = torch.finfo(dtype).bits // 8
-    nbytes = b * l * h * p * esz + b * l * h * 4 + h * 4 \
-        + 2 * b * l * g * n * esz + b * l * h * p * 4 + b * h * p * n * 4
-    pairs = chunk * (chunk + 1) // 2
-    flops = b * h * (l // chunk) * (2 * pairs * (n + p) + 4 * chunk * n * p)
+    nbytes, flops = ssd_bytes_flops(b, l, h, p, g, n, chunk, dtype)
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     del sets
+
+    lb, ll, lh, lp, lg, ln, lchunk = SSD_LONG
+    long_sets = [ssd_inputs(gen, dev, dtype, lb, ll, lh, lp, lg, ln)
+                 for _ in range(3)]
+    long_ms, long_device_ms, _ = cuda_ms(
+        lambda i: ssd_scan(*long_sets[i % 3], chunk=lchunk), 9)
+    ssd_scan.launches = before  # timing launches are not the path's
+    long_bound_ms, _ = bound(*ssd_bytes_flops(*SSD_LONG, dtype), dtype)
+    del long_sets
     torch.cuda.empty_cache()
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/csrc/ssd_scan.cu",
@@ -969,7 +989,10 @@ def ssd_timing(dev, seed: int, launches: int):
                 library_ms=None), \
         dict(shape=[b, l, h, p, g, n], chunk=chunk, bytes=nbytes,
              flops=flops, dtype="bfloat16", device_ms=device_ms,
-             plain_device_ms=plain_device_ms, host_us=host_us)
+             plain_device_ms=plain_device_ms, host_us=host_us,
+             long_prompt=dict(shape=list(SSD_LONG[:6]), chunk=lchunk,
+                              ms=long_ms, device_ms=long_device_ms,
+                              bound_ms=long_bound_ms))
 
 
 def fmt_ms(x) -> str:
@@ -980,6 +1003,12 @@ def log_timings(card: str, timed) -> None:
     """One line per kernel: back to back (the kernels line's times), then
     the card's time alone and the host's per call."""
     for k, shapes in timed:
+        lp = shapes.get("long_prompt")
+        if lp is not None:
+            log(f"ssd_scan long prompt on {card}: {lp['shape']} chunk "
+                f"{lp['chunk']}: back to back kernel {lp['ms']:.4f} ms; "
+                f"device kernel {fmt_ms(lp['device_ms'])}; bound "
+                f"{lp['bound_ms']:.4f} ms")
         for c in shapes.get("engine_chunks", ()):
             log(f"flash_prefill engine chunk on {card}: {c['chunk']} queries "
                 f"at offset {c['q_offset']} ({c['valid_pairs']} valid pairs "

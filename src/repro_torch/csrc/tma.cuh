@@ -1,9 +1,10 @@
-// Hopper asynchronous-copy plumbing shared by the attention kernels
-// (paged_attention.cu, flash_prefill.cu): mbarriers, TMA tensor loads of a
-// paged KV pool, and the host side of both. The host helpers cache what
-// does not change from call to call (tensor maps, the shared-memory
-// attribute, the SM count), because a decode step calls a kernel once per
-// layer and the host's cost per call sets the pace of an eager engine.
+// Hopper asynchronous-copy plumbing shared by the kernels
+// (paged_attention.cu, flash_prefill.cu, ssd_scan.cu): mbarriers, TMA
+// tensor loads of a paged KV pool or any 3-D tensor, and the host side of
+// both. The host helpers cache what does not change from call to call
+// (tensor maps, the shared-memory attribute, the SM count), because a
+// decode step calls a kernel once per layer and the host's cost per call
+// sets the pace of an eager engine.
 
 #pragma once
 
@@ -103,13 +104,16 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 // tensor (Hkv * Dh, ps, P); one box is box_w elements x box_t tokens of one
 // page, landing as box_t rows of box_w elements. A box that starts at head h
 // reads box_w - Dh elements of head h + 1 (zeros past the last head).
+// Any (dim0, rows, count) tensor with row stride st and count stride sp
+// (elements) takes the same map; `swizzle` sets the layout a box lands in
+// (ssd_scan's tiles land 128-byte swizzled, for wgmma).
 // Writes the map to *map and returns 0, or kEncodeError + the CUresult.
 // The maps are cached, keyed on everything they encode: an engine's
 // per-layer pools are the same few slices call after call.
-inline int encode_pool(CUtensorMap* map, const void* base,
-                       CUtensorMapDataType type, int esz, int hkv_dh, int ps,
-                       int pages, int64_t st, int64_t sp, int box_w,
-                       int box_t) {
+inline int encode_pool(
+    CUtensorMap* map, const void* base, CUtensorMapDataType type, int esz,
+    int hkv_dh, int ps, int pages, int64_t st, int64_t sp, int box_w,
+    int box_t, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   static const EncodeTiled encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -125,7 +129,7 @@ inline int encode_pool(CUtensorMap* map, const void* base,
     const void* base;
     uint64_t dims[3], strides[2];
     uint32_t box[2];
-    int type;
+    int type, swizzle;
   };
   struct Slot {
     Key key;
@@ -146,6 +150,7 @@ inline int encode_pool(CUtensorMap* map, const void* base,
   key.box[0] = (uint32_t)box_w;
   key.box[1] = (uint32_t)box_t;
   key.type = (int)type;
+  key.swizzle = (int)swizzle;
   uint64_t h = 1469598103934665603ull;  // FNV-1a over the key's bytes
   const unsigned char* kb = reinterpret_cast<const unsigned char*>(&key);
   for (size_t i = 0; i < sizeof key; ++i) h = (h ^ kb[i]) * 1099511628211ull;
@@ -163,8 +168,8 @@ inline int encode_pool(CUtensorMap* map, const void* base,
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r =
       encode(map, type, 3, const_cast<void*>(base), key.dims, key.strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
   int dst = home;  // a free slot of the probe run, else the home slot

@@ -25,8 +25,8 @@ def _lib():
     fn = lib.ssd_scan_fwd
     if fn.argtypes is None:
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, i32, i32,
-                       i32, i64, i64, i64, i64, i32, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i32, i32, i32, i32, i32,
+                       i32, i32, i64, i64, i64, i64, i32, p]
         fn.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -86,20 +86,27 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
         raise ValueError(f"ssd_scan: no kernel for {x.device}")
     _check(x, dt, A, B, C)
     y = torch.empty((b, l, h, p), dtype=torch.float32, device=x.device)
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-    if b and l and h:
-        lib = _lib()
-        err = _build.call(
-            lib.ssd_scan_fwd, x.get_device(),
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), state.data_ptr(), b, l, h, p,
-            B.shape[2], n, chunk, x.stride(0), x.stride(1), B.stride(0),
-            B.stride(1), _DTYPES[x.dtype])
-        if err != 0:
-            msg = lib.ssd_scan_error_string(err).decode()
-            raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
-                               f"{err} ({msg})")
-        ssd_scan.launches += 1
+    if not (b and l and h):
+        return y, torch.zeros((b, h, p, n), dtype=torch.float32,
+                              device=x.device)
+    # the kernel writes all of the state; the bf16 form chains it from
+    # chunk to chunk through per-(b, h) flags and a ticket, zeroed here
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    sync = torch.zeros(b * h + 1, dtype=torch.int32, device=x.device) \
+        if x.dtype == torch.bfloat16 else None
+    lib = _lib()
+    err = _build.call(
+        lib.ssd_scan_fwd, x.get_device(),
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), y.data_ptr(), state.data_ptr(),
+        None if sync is None else sync.data_ptr(), b, l, h, p,
+        B.shape[2], n, chunk, x.stride(0), x.stride(1), B.stride(0),
+        B.stride(1), _DTYPES[x.dtype])
+    if err != 0:
+        msg = lib.ssd_scan_error_string(err).decode()
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
+                           f"{err} ({msg})")
+    ssd_scan.launches += 1
     return y, state
 
 

@@ -381,6 +381,65 @@ def test_cuda_ssd_scan_reads_projection_slices(cuda):
     torch.testing.assert_close(st, sr, **SSD_TOL)
 
 
+def _ssd_rel_err(y, st, yr, sr):
+    """Errors relative to max |y| and max |state| (``chip_smoke.py``'s
+    measure), each held at 2e-4."""
+    return ((y - yr).abs().max() / yr.abs().max()).item(), \
+        ((st - sr).abs().max() / sr.abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,l,h,p,g,n,chunk",
+    [(1, 4096, 64, 64, 1, 128, 256),  # one long prompt: a 16-chunk chain
+     (4, 1024, 64, 64, 1, 128, 256),  # mamba2's prefill in chip_smoke.py
+     (1, 1024, 8, 64, 1, 128, 16), (1, 1024, 8, 64, 1, 128, 32),
+     (2, 512, 8, 64, 1, 128, 64),
+     (1, 96, 8, 64, 1, 128, 48),  # a chunk that is not a power of two
+     (2, 512, 64, 50, 1, 16, 256),  # hymba-1.5b's widths and chunk
+     (2, 512, 8, 64, 2, 128, 128)])  # two groups
+def test_cuda_ssd_scan_chunk_chain_matches_plain(cuda, b, l, h, p, g, n,
+                                                 chunk, dtype):
+    """The chunk-parallel kernel, whose blocks chain the state from chunk
+    to chunk, at mamba2's widths (chains of 4 to 64 chunks) and hymba's,
+    against the plain scan: 2e-4 of max |y| and of max |state|. (Not
+    elementwise: over thousands of tokens the plain version's own float32
+    cumulative sums differ from any other order of sums by more than 2e-4
+    at some small |y|, for the float32 CUDA-core form as well.)"""
+    x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, l + chunk, cuda, dtype)
+    before = ssd_scan.launches
+    y, st = ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    yr, sr = tref.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    y_err, s_err = _ssd_rel_err(y, st, yr, sr)
+    assert y_err <= 2e-4 and s_err <= 2e-4, (y_err, s_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_scan_reads_mamba2_projection_slices(cuda, dtype):
+    """x, B and C as mamba2-1.3b's ``ssm_forward`` hands them at full
+    width: strided slices of one (b, l, 4096 + 2 x 128) conv output, read
+    in place (16-byte aligned rows, so the bf16 form stages them by
+    cp.async); and the same with the slices one element off alignment."""
+    b, l, h, p, n = 2, 512, 64, 64, 128
+    _, dt, A, _, _ = _ssd_inputs(b, l, h, p, 1, n, 11, cuda)
+    rng = np.random.default_rng(12)
+    for lead in (0, 1):
+        xbc = torch.from_numpy(rng.standard_normal(
+            (b, l, lead + h * p + 2 * n)).astype(np.float32)).to(cuda)
+        xbc = xbc.to(dtype)[..., lead:]
+        x = xbc[..., :h * p].reshape(b, l, h, p)
+        B = xbc[..., h * p:h * p + n].reshape(b, l, 1, n)
+        C = xbc[..., h * p + n:].reshape(b, l, 1, n)
+        y, st = ssd_scan(x, dt, A, B, C, chunk=256)
+        yr, sr = tref.ssd_scan(x, dt, A, B, C, chunk=256)
+        y_err, s_err = _ssd_rel_err(y, st, yr, sr)
+        assert y_err <= 2e-4 and s_err <= 2e-4, (lead, y_err, s_err)
+
+
 @pytest.mark.gpu
 def test_cuda_ssd_scan_raises_instead_of_falling_back(cuda):
     x, dt, A, B, C = _ssd_inputs(1, 48, 2, 8, 1, 4, 0, cuda)
@@ -391,6 +450,28 @@ def test_cuda_ssd_scan_raises_instead_of_falling_back(cuda):
     x, dt, A, B, C = _ssd_inputs(1, 32, 2, 80, 1, 4, 0, cuda)
     with pytest.raises(ValueError):  # p above the kernel's tile
         ssd_scan(x, dt, A, B, C, chunk=16)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_bf16_raises_on_what_it_does_not_take(cuda):
+    x, dt, A, B, C = _ssd_inputs(1, 64, 4, 16, 2, 8, 0, cuda, torch.bfloat16)
+    before = ssd_scan.launches
+    with pytest.raises(TypeError):  # B and C must share x's dtype
+        ssd_scan(x, dt, A, B.float(), C.float(), chunk=32)
+    with pytest.raises(TypeError):  # dt must be float32
+        ssd_scan(x, dt.to(torch.bfloat16), A, B, C, chunk=32)
+    with pytest.raises(ValueError):  # dense trailing axes only
+        ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B,
+                 C, chunk=32)
+    x3, dt3, A3, B3, C3 = _ssd_inputs(1, 64, 3, 16, 2, 8, 0, cuda,
+                                      torch.bfloat16)
+    with pytest.raises(ValueError):  # g must divide h
+        ssd_scan(x3, dt3, A3, B3, C3, chunk=32)
+    xn, dtn, An, Bn, Cn = _ssd_inputs(1, 64, 2, 16, 1, 136, 0, cuda,
+                                      torch.bfloat16)
+    with pytest.raises(ValueError):  # n above the kernel's tile
+        ssd_scan(xn, dtn, An, Bn, Cn, chunk=32)
+    assert ssd_scan.launches == before
 
 
 # -- the paths through the kernels ---------------------------------------------------

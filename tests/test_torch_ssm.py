@@ -103,6 +103,24 @@ def test_plain_ssd_scan_matches_pallas_chunked_and_sequential(chunk, g):
     assert tssd.ssd_scan.launches == before
 
 
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("g", [1, 2])
+def test_plain_ssd_scan_carries_state_across_many_chunks(chunk, g):
+    """mamba2's widths (p 64, n 128) over 16-32 chunks of one 1024-token
+    sequence: the chunk-to-chunk state that the CUDA kernel chains from
+    block to block, against the Pallas kernel, ``ssd_chunked`` and the
+    sequential oracle."""
+    x, dt, A, B, C = _scan_inputs(1, 1024, 2, 64, g, 128, seed=chunk + g)
+    jargs = [jnp.asarray(a) for a in (x, dt, A, B, C)]
+    y, st = tref.ssd_scan(*(_t(a) for a in (x, dt, A, B, C)), chunk=chunk)
+    assert tuple(st.shape) == (1, 2, 64, 128)
+    for wy, ws in (ops.ssd_scan(*jargs, chunk=chunk),
+                   jssm.ssd_chunked(*jargs, chunk),
+                   jref.ssd_scan_ref(*jargs)):
+        np.testing.assert_allclose(_np(y), _np(wy), **SCAN)
+        np.testing.assert_allclose(_np(st), _np(ws), **SCAN)
+
+
 def test_plain_ssd_scan_bf16_inputs():
     """bfloat16 x, B, C are upcast: the same result as float32 inputs of
     the rounded values, as the Pallas kernel computes it."""
