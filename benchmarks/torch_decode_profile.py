@@ -1,10 +1,14 @@
 """Where a serving run of the PyTorch port spends its time on the GPU.
 
     python3 benchmarks/torch_decode_profile.py
+    python3 benchmarks/torch_decode_profile.py \
+        --arch llama4-scout-17b-a16e --layers 12
 
 Needs one CUDA card. Serves the traffic of ``chip_smoke.py``'s serve phase
-(full-width h2o-danube-1.8b in bf16, random weights from a seed, 8 requests
-at once with prompts of 64-1024 tokens, one best-of-2, 32 new tokens each)
+(full-width h2o-danube-1.8b in bf16 by default, or ``--arch`` at full
+width, cut to ``--layers`` layers where given; random weights from a seed,
+8 requests at once with prompts of 64-1024 tokens, one best-of-2, 32 new
+tokens each)
 through ``LLMService`` three times: to warm up (kernel build, cuBLAS
 start-up), timed without a profiler, and under ``torch.profiler``. Prints
 the card's name and power limit, the wall time of the unprofiled run and
@@ -18,6 +22,8 @@ Then one JSON line with the same numbers.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -49,7 +55,12 @@ def serve(cfg, params, dev, seed):
     return engine, time.monotonic() - t0
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="h2o-danube-1.8b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_decode_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -62,7 +73,8 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    cfg = get_config("h2o-danube-1.8b")
+    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(cfg, num_layers=args.layers or cfg.num_layers)
     params = init_params(cfg, seed=0, device=dev)
     serve(cfg, params, dev, seed=0)  # warm-up
     engine, wall = serve(cfg, params, dev, seed=0)
@@ -93,7 +105,8 @@ def main() -> int:
                    if getattr(ev, "device_type", None) == DeviceType.CPU),
                   key=lambda k: -k[1])[:10]
     out = dict(
-        card=card, wall_s=wall, wall_profiled_s=wall_profiled,
+        card=card, arch=cfg.arch_id, layers=cfg.num_layers, wall_s=wall,
+        wall_profiled_s=wall_profiled,
         iterations=len(iters),
         decode_only_iterations=len(decode_only),
         decode_only_ms_mean=1e3 * float(np.mean(decode_only))
@@ -102,13 +115,14 @@ def main() -> int:
         prefill_iteration_ms_mean=1e3 * float(np.mean(with_prefill))
         if with_prefill else None,
         device_busy_s=busy_us / 1e6,
+        kernel_launches=sum(c for _, _, c in kernels),
         device_idle_share=1.0 - busy_us / 1e6 / wall if busy_us else None,
         top_kernels=[dict(name=k[:90], device_ms=t / 1e3, calls=c,
                           share=t / busy_us)
                      for k, t, c in kernels[:12]] if busy_us else [],
         top_host_ops_profiled=[dict(name=k[:60], self_cpu_ms=t / 1e3,
                                     calls=c) for k, t, c in host])
-    print(f"card: {card}")
+    print(f"card: {card}; {cfg.arch_id}, {cfg.num_layers} layers")
     print(f"serve run: {wall:.3f} s wall ({wall_profiled:.3f} s under the "
           f"profiler), {len(iters)} iterations "
           f"({len(decode_only)} decode-only, mean "
@@ -118,7 +132,8 @@ def main() -> int:
         print("the profiler recorded no device time on this machine")
     else:
         print(f"device busy {busy_us / 1e6:.3f} s of {wall:.3f} s wall "
-              f"(idle share {out['device_idle_share']:.3f})")
+              f"(idle share {out['device_idle_share']:.3f}), "
+              f"{out['kernel_launches']} kernel launches")
         for k in out["top_kernels"]:
             print(f"  {k['device_ms']:10.3f} ms {k['share']:6.1%} "
                   f"{k['calls']:6d}x  {k['name']}")

@@ -22,8 +22,10 @@ or the JAX package) and:
    and past it. ``ssd_scan`` at the reference test's shapes, at
    mamba2-1.3b's full width (4 x 1024 tokens, and one 4096-token prompt:
    a chain of 16 chunks) and at hymba-1.5b's widths (P 50, N 16), float32
-   and bfloat16 x. Tolerances: float32
-   2e-5 and bfloat16 3e-2 (``tests/test_kernels.py``); 3e-2 for the
+   and bfloat16 x. Both attention kernels also at the GQA groups of the
+   configs served below that lie outside {1, 2, 4, 8}: G 5, 6, 12 and 48
+   at head_dim 128, float32 and bfloat16, window none and 24. Tolerances:
+   float32 2e-5 and bfloat16 3e-2 (``tests/test_kernels.py``); 3e-2 for the
    engine form of flash_prefill in both types (it rounds its probabilities
    to bfloat16, so a one-ulp score difference can flip a rounding); 2e-4
    for ssd_scan (the Pallas kernel's test), relative to max |y| at full
@@ -34,11 +36,16 @@ or the JAX package) and:
    tokens chunked across iterations, greedy and sampled, 32 new tokens
    each. The launch counts are read around this phase alone:
    ``paged_attention`` must equal 24 x the engine's decode steps and
-   ``flash_prefill`` 24 x its prefill chunks;
+   ``flash_prefill`` 24 x its prefill chunks; every logit must be finite;
 5. oracle phase: serves a few greedy requests in float32 (``logits_fp32``)
    and checks every generated token against the argmax of the port's
    ``Model.forward`` over prompt + generated tokens;
-6. mamba2 phase: full-width mamba2-1.3b (48 layers, d 2048, 64 SSD heads
+6. slice-1 phase: danube in float32 on what the serve phase bypasses: a
+   prefix-cache engine resuming mid-page, whose greedy tokens must equal a
+   cold engine's; a context past the 4096-token window, through both
+   kernels; a pool too small for its requests, which forces preemption
+   and recompute; the last two against ``Model.forward``;
+7. mamba2 phase: full-width mamba2-1.3b (48 layers, d 2048, 64 SSD heads
    of 64, state 128, random weights from a seed, bfloat16): ``Model.
    prefill`` of 4 prompts x 1024 tokens, ``ssd_scan`` launched 48 times,
    then 32 greedy ``decode_step``s; prints the prefill time and the decode
@@ -46,12 +53,29 @@ or the JAX package) and:
    prefill's last logits and final SSM states (through the kernel) against
    stepping ``decode_step`` token by token from ``init_cache`` (no kernel),
    and the greedy tokens that follow from each;
-7. times each kernel at its path's shapes beside its plain version, one
+8. MoE phases: llama4-scout-17b-a16e at full width (d 5120, 40 heads over
+   8 KV heads, 16 experts of 8192 + 1 shared, top-1, capacity factor
+   1.25), cut to 12 of its 48 layers, bf16, served as in the serve phase;
+   then its float32 oracle at 2 layers with capacity factor 16 (no token
+   dropped), prompts as in the oracle phase: beyond a logit near-tie, a
+   mismatch is allowed only where a second oracle run with the engine's
+   float32 decode attention routes a position otherwise and chooses the
+   engine's token;
+9. dense phases: paper-opt-13b whole (40 layers) under the serve traffic;
+   granite-20b (52 layers) and command-r-35b (40) whole and
+   mistral-large-123b at 20 of 88 layers, 4 greedy requests of 8 new
+   tokens each; each one's float32 oracle at 2 layers. Every phase from
+   the serve phase on prints its seconds and ``max_memory_allocated`` on
+   a line of its own, and frees its model before the next;
+10. times each kernel at its path's shapes beside its plain version, one
    PyTorch library call computing the same function where there is one,
    and the least time the card could take (its bound), and prints them as
    one JSON line; ``flash_prefill``'s engine form is also timed at each of
    the kernel phase's chunk shapes, beside SDPA, one line each, and
-   ``ssd_scan`` at one 4096-token prompt beside its timing shape. The times
+   ``ssd_scan`` at one 4096-token prompt beside its timing shape. The two
+   attention kernels are also timed at llama4-scout's (G 5), granite's
+   (G 48) and paper-opt-13b's (G 1, 40 heads) decode and chunk shapes,
+   beside SDPA, one line each. The times
    in the JSON line are of calls launched back to back from Python, as a
    caller meets them; the card's time alone and the host's time per call
    are printed beside them and kept in the detail line.
@@ -70,6 +94,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -122,6 +147,34 @@ SSD_SHAPES = [(2, 128, 4, 16, 1, 8, 16), (2, 128, 4, 16, 2, 8, 32),
               (2, 1024, 64, 50, 1, 16, 256)]
 MAMBA_BATCH, MAMBA_PROMPT, MAMBA_NEW = 4, 1024, 32
 MAMBA_ORACLE_BATCH, MAMBA_ORACLE_PROMPT, MAMBA_ORACLE_NEW = 2, 512, 8
+# the float32 oracles' engine and depth (the full width is kept)
+ORACLE_ENGINE = dict(num_pages=256, page_size=PS, max_slots=4,
+                     max_tokens_per_iter=512)
+ORACLE_LAYERS = 2
+# slice 1's paths that the serve phase bypasses (danube, float32): a
+# shared prefix that ends mid-page, a prompt whose context passes the
+# 4096-token window, a pool too small for its requests
+PREFIX_COMMON, PREFIX_SUFFIXES = 1000, (50, 70)
+LONG_PROMPT, LONG_NEW, LONG_PAGES = 4200, 24, 512
+PREEMPT_PROMPTS, PREEMPT_NEW, PREEMPT_PAGES = [500] * 4, 40, 100
+# GQA groups of the configs beyond {1, 2, 4, 8}, at head_dim 128: (H, Hkv)
+# of llama4-scout (G 5), a G 6, mistral-large (G 12), granite (G 48)
+GQA_GROUPS = [(40, 8), (12, 2), (96, 8), (48, 1)]
+GQA_DH = 128
+# MoE on GQA, served at full width cut in depth to fit one card (bf16
+# weights: 4.40 GB a layer with all 16 experts)
+MOE_ARCH, MOE_LAYERS = "llama4-scout-17b-a16e", 12
+# the other dense GQA configs, whole (None) or cut in depth; paper-opt-13b
+# is served whole under the serve traffic
+DENSE_LAYERS = {"granite-20b": None, "command-r-35b": None,
+                "mistral-large-123b": 20}
+SHORT_PROMPTS, SHORT_NEW = [64, 333, 512, 900], 8
+SHORT_ENGINE = dict(num_pages=256, page_size=PS, max_slots=4,
+                    max_tokens_per_iter=512)
+# the attention kernels also timed at these configs' widths (G 5, 48, 1),
+# pools of TIMING_LAYERS layers cycled
+GQA_TIMING = ("llama4-scout-17b-a16e", "granite-20b", "paper-opt-13b")
+TIMING_LAYERS = 8
 
 
 def log(msg: str) -> None:
@@ -195,20 +248,22 @@ def cuda_ms(fn, iters: int, warmup: int = 3, bursts: int = 5):
 # -- kernel phase ---------------------------------------------------------------
 
 def paged_inputs(gen, dev, dtype, lens, layers=1, extra_pages=3,
-                 page_major=False):
+                 page_major=False, widths=(H, HKV, DH)):
     """Pools of ``layers`` layers, a (B, n) block table of distinct pages
     in random order, q. ``page_major`` lays the pool out as (P, L, ...),
-    so a layer slice has a page stride of L pages."""
+    so a layer slice has a page stride of L pages. ``widths``: (H, Hkv,
+    Dh), danube's by default."""
+    h, hkv, dh = widths
     b = len(lens)
     n = max(1, max(-(-x // PS) for x in lens))
     npages = b * n + extra_pages
-    shape = (npages, layers, PS, HKV, DH) if page_major else \
-        (layers, npages, PS, HKV, DH)
+    shape = (npages, layers, PS, hkv, dh) if page_major else \
+        (layers, npages, PS, hkv, dh)
     kp = torch.randn(shape, generator=gen, device=dev).to(dtype)
     vp = torch.randn(shape, generator=gen, device=dev).to(dtype)
     perm = torch.randperm(npages, generator=gen, device=dev)[:b * n]
     bt = perm.reshape(b, n).to(torch.int32)
-    q = torch.randn((b, H, DH), generator=gen, device=dev).to(dtype)
+    q = torch.randn((b, h, dh), generator=gen, device=dev).to(dtype)
     ctx = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, kp, vp, bt, ctx
 
@@ -330,6 +385,69 @@ def flash_phase(dev):
     return cases
 
 
+def gqa_group_phase(dev):
+    """Both attention kernels at the GQA groups of this slice's configs
+    that lie outside {1, 2, 4, 8} (``GQA_GROUPS``, head_dim 128), float32
+    and bfloat16, window none and 24, against their plain versions:
+    decode over ragged contexts (an empty row, rows split over several
+    blocks), the engine form at a 100-query chunk at offset 37 and one
+    query at 300."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import prefill_attention_paged
+    from repro_torch.kernels.paged_attention import (SPLIT_TOKENS,
+                                                     paged_attention)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    lens = [37, 0, SPLIT_TOKENS + 5, 3 * SPLIT_TOKENS - 9, 16]
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (None, 24):
+            for h, hkv in GQA_GROUPS:
+                widths = (h, hkv, GQA_DH)
+                q, k, v, bt, ctx = paged_inputs(gen, dev, dtype, lens,
+                                                widths=widths)
+                k, v = k[0], v[0]
+                out, m, l = paged_attention(q, k, v, bt, ctx, page_size=PS,
+                                            window=window,
+                                            return_partials=True)
+                torch.cuda.synchronize()
+                wo, wm, wl = ref.paged_attention(
+                    q, k, v, bt, ctx, page_size=PS, window=window,
+                    return_partials=True)
+                torch.testing.assert_close(out.float(), wo.float(),
+                                           **TOL[dtype])
+                if dtype == torch.bfloat16:  # |o| can lie under TOL's 3e-2
+                    torch.testing.assert_close(out.float(), wo.float(),
+                                               **TOL_BF16_OUT)
+                torch.testing.assert_close(m, wm, rtol=2e-5, atol=2e-5)
+                torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-4)
+                assert (out[ctx == 0] == 0).all()
+                case = dict(g=h // hkv, heads=h, kv_heads=hkv,
+                            head_dim=GQA_DH, dtype=str(dtype)[6:],
+                            window=window,
+                            paged_attention_max_abs_err=(
+                                out.float() - wo.float()).abs().max().item())
+                for s, q_offset in ((100, 37), (1, 300)):
+                    _, kp, vp, pbt, _ = paged_inputs(
+                        gen, dev, dtype, [q_offset + s], widths=widths)
+                    cq = torch.randn((1, s, h, GQA_DH), generator=gen,
+                                     device=dev).to(dtype)
+                    got = prefill_attention_paged(
+                        cq, kp[0], vp[0], pbt[0], q_offset=q_offset,
+                        window=window)
+                    torch.cuda.synchronize()
+                    want = ref.prefill_attention_paged(
+                        cq, kp[0], vp[0], pbt[0], q_offset=q_offset,
+                        window=window)
+                    torch.testing.assert_close(got.float(), want.float(),
+                                               **TOL_ENGINE)
+                    case[f"flash_prefill_{s}_at_{q_offset}_max_abs_err"] = \
+                        (got.float() - want.float()).abs().max().item()
+                cases.append(case)
+                log(f"kernel phase: GQA group {case} ok")
+    return cases
+
+
 def ssd_inputs(gen, dev, dtype, b, l, h, p, g, n):
     """x, dt (softplus of a normal), A (-exp of a normal / 2), B, C."""
     def rand(*shape):
@@ -397,27 +515,80 @@ def serve_requests(vocab_size: int, seed: int):
     return reqs
 
 
+def phase_end(label: str, t0: float) -> dict:
+    """The phase's seconds and peak device memory (since the phase reset
+    the peak), on a line of their own. The phase's model is gone by now:
+    whatever a reference cycle still holds is collected and the cache
+    returned, so that the next phase has the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out = dict(seconds=time.monotonic() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"{label}: {out['seconds']:.1f} s, max_memory_allocated "
+        f"{out['peak_gib']:.2f} GiB")
+    return out
+
+
+def short_requests(vocab_size: int, seed: int):
+    """SHORT_PROMPTS greedy requests of SHORT_NEW new tokens each."""
+    from repro_torch.serving.api import SamplingParams
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab_size, n).tolist(),
+             SamplingParams(max_new_tokens=SHORT_NEW))
+            for n in SHORT_PROMPTS]
+
+
 def serve_phase(dev, seed: int):
-    from repro_torch.bridge import init_params
+    """Full-width h2o-danube-1.8b, all 24 layers, under the serve
+    traffic."""
     from repro_torch.configs import get_config
+    cfg = get_config("h2o-danube-1.8b")
+    return serve_model("serve phase", cfg, dev, seed,
+                       serve_requests(cfg.vocab_size, seed), SERVE_ENGINE)
+
+
+def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw):
+    """Serve ``requests`` ((prompt, SamplingParams) pairs) through
+    LLMService on a PagedEngine of ``engine_kw``, with ``cfg``'s weights
+    drawn from ``seed`` on the card. The launch counts are read around
+    this run alone: paged_attention must equal layers x the engine's
+    decode steps and flash_prefill layers x its prefill chunks. Every
+    logit the engine returns must be finite, every token in the vocab."""
+    from repro_torch.bridge import init_params
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.serving.api import LLMService
     from repro_torch.serving.engine import EngineConfig, PagedEngine
 
-    cfg = get_config("h2o-danube-1.8b")  # full width, all 24 layers
-    t0 = time.monotonic()
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=seed, device=dev)
     torch.cuda.synchronize()
-    log(f"serve phase: {cfg.arch_id} {cfg.num_layers}L d{cfg.d_model} "
-        f"{cfg.dtype} weights on the card in {time.monotonic() - t0:.1f}s")
-    engine = PagedEngine(cfg, params, EngineConfig(**SERVE_ENGINE,
-                                                   seed=seed), device=dev)
-    svc = LLMService(engine)
-    ids = [(svc.submit(prompt, sp), sp)
-           for prompt, sp in serve_requests(cfg.vocab_size, seed)]
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{label}: {cfg.arch_id} {cfg.num_layers}L d{cfg.d_model} "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads, "
+        f"{n_params / 1e9:.2f} B params {cfg.dtype} on the card in "
+        f"{time.monotonic() - t_phase:.1f}s")
+    engine = PagedEngine(cfg, params, EngineConfig(**engine_kw, seed=seed),
+                         device=dev)
+    # a running flag on the card: no sync in the loop
+    finite = torch.ones((), dtype=torch.bool, device=dev)
 
-    paged_attention.launches = 0  # read around this phase alone
+    def watch(fn):
+        def watched(*args):
+            logits = fn(*args)
+            finite.logical_and_(
+                torch.isfinite(logits[..., :cfg.vocab_size]).all())
+            return logits
+        return watched
+
+    engine._prefill_chunk = watch(engine._prefill_chunk)
+    engine._decode = watch(engine._decode)
+    svc = LLMService(engine)
+    ids = [(svc.submit(prompt, sp), sp) for prompt, sp in requests]
+
+    paged_attention.launches = 0  # read around this run alone
     flash_prefill.launches = 0
     decode0, chunks0 = engine.decode_steps, engine.prefill_chunks
     t0 = time.monotonic()
@@ -429,6 +600,7 @@ def serve_phase(dev, seed: int):
     prefill_launches = flash_prefill.launches
     decode_steps = engine.decode_steps - decode0
     chunks = engine.prefill_chunks - chunks0
+    del engine._prefill_chunk, engine._decode  # the watches hold the engine
 
     outs = [svc._take_result(rid) for rid, _ in ids]
     n_tokens = 0
@@ -436,12 +608,13 @@ def serve_phase(dev, seed: int):
     for (rid, sp), out in zip(ids, outs):
         assert len(out.samples) == sp.n, (rid, len(out.samples))
         for s in out.samples:
-            assert len(s.token_ids) == SERVE_NEW and \
+            assert len(s.token_ids) == sp.max_new_tokens and \
                 s.finish_reason == "length", (rid, s)
             assert all(0 <= t < cfg.vocab_size for t in s.token_ids)
             assert all(math.isfinite(x) for x in s.token_logprobs)
             n_tokens += len(s.token_ids)
         ttfts.append(out.metrics.ttft)
+    assert bool(finite), f"{label}: a logit was not finite"
     assert decode_steps > 0
     assert launches == cfg.num_layers * decode_steps, \
         f"paged_attention launched {launches} times over {decode_steps} " \
@@ -450,12 +623,13 @@ def serve_phase(dev, seed: int):
     assert prefill_launches == cfg.num_layers * chunks, \
         f"flash_prefill launched {prefill_launches} times over {chunks} " \
         f"prefill chunks of {cfg.num_layers} layers"
-    log(f"serve phase: {len(outs)} requests ({n_tokens} tokens) in "
+    log(f"{label}: {len(outs)} requests ({n_tokens} tokens) in "
         f"{engine.iterations} iterations, {decode_steps} decode steps, "
         f"{chunks} prefill chunks; paged_attention launches {launches} = "
         f"{cfg.num_layers} x {decode_steps}; flash_prefill launches "
         f"{prefill_launches} = {cfg.num_layers} x {chunks}")
-    stats = dict(requests=len(outs), tokens=n_tokens, wall_s=wall,
+    stats = dict(arch=cfg.arch_id, layers=cfg.num_layers, params=n_params,
+                 requests=len(outs), tokens=n_tokens, wall_s=wall,
                  tokens_per_s=n_tokens / wall,
                  ttft_mean_s=sum(ttfts) / len(ttfts), ttft_max_s=max(ttfts),
                  iterations=engine.iterations, decode_steps=decode_steps,
@@ -463,56 +637,172 @@ def serve_phase(dev, seed: int):
                  prefill_launches=prefill_launches)
     del engine, params, svc
     torch.cuda.empty_cache()
+    stats.update(phase_end(label, t_phase))
     return stats
 
 
-# -- oracle phase -----------------------------------------------------------------
+# -- oracle phases ----------------------------------------------------------------
 
 def oracle_phase(dev, seed: int):
-    """Greedy tokens of the float32 engine against the argmax of the port's
-    Model.forward over prompt + generated tokens. The engine's prefill
-    attention (the engine form of flash_prefill) rounds q, k, v and the
-    probabilities to bf16 as the oracle's blockwise_attention does, in
-    another order of sums; its decode attention (paged_attention) is
-    float32 throughout. A mismatch is
-    allowed only where the oracle's top-2 logits are closer than eps = 2**-7
-    of the largest |logit| at that position (one bf16 ulp, with room for an
-    exponent step, as ``tests/test_engine.py`` allows) and the engine chose
-    the runner-up; comparing that request stops there. The smallest top-2
-    gap over the compared positions, relative to the largest |logit|, is
-    returned, to show how near the run came to a tie."""
-    from repro_torch.bridge import init_params
+    """The float32 oracle at full-width h2o-danube-1.8b, all 24 layers."""
     from repro_torch.configs import get_config
-    from repro_torch.models.transformer import Model
+    return oracle_model("oracle phase", get_config("h2o-danube-1.8b"), dev,
+                        seed)
+
+
+def oracle_model(label: str, cfg, dev, seed: int):
+    """Greedy tokens of ``cfg``'s engine in float32 (``logits_fp32``) for
+    ORACLE_PROMPTS, one longer than the 512-token chunk budget, against
+    the port's Model.forward (``oracle_check``)."""
+    from repro_torch.bridge import init_params
     from repro_torch.serving.api import LLMService, SamplingParams
     from repro_torch.serving.engine import EngineConfig, PagedEngine
-    eps = NEAR_TIE
 
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
     torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"),
-                              dtype="float32", logits_fp32=True)
+    cfg = dataclasses.replace(cfg, dtype="float32", logits_fp32=True)
     params = init_params(cfg, seed=seed, device=dev)
-    engine = PagedEngine(cfg, params, EngineConfig(
-        num_pages=256, page_size=PS, max_slots=4, max_tokens_per_iter=512),
-        device=dev)
+    engine = PagedEngine(cfg, params, EngineConfig(**ORACLE_ENGINE),
+                         device=dev)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in ORACLE_PROMPTS]
     outs = LLMService(engine).generate(
         prompts, SamplingParams(max_new_tokens=ORACLE_NEW))
     del engine
+    stats = oracle_check(label, cfg, params, prompts,
+                         [o.token_ids for o in outs], dev)
+    del params
+    torch.cuda.empty_cache()
+    stats.update(arch=cfg.arch_id, layers=cfg.num_layers,
+                 **phase_end(label, t0))
+    return stats
+
+
+def f32_attention(q, k, v, q_offset: int, window):
+    """Causal attention of queries at ``q_offset``.. over all of k / v, in
+    float32 without rounding q, k, v or the probabilities to bf16: the
+    numerics of the engine's decode kernel (paged_attention)."""
+    dh, g = q.shape[-1], q.shape[2] // k.shape[2]
+    k = k.float().repeat_interleave(g, dim=2)
+    v = v.float().repeat_interleave(g, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k) / math.sqrt(dh)
+    qpos = q_offset + torch.arange(q.shape[1], device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = kpos[None] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None] > qpos[:, None] - window
+    probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), -1)
+    return torch.einsum("bhst,bthd->bshd", probs, v).to(q.dtype)
+
+
+@torch.no_grad()
+def oracle_forward(model, params, tokens, decode_from=None):
+    """Model.forward over ``tokens`` (1, S), layer by layer as it runs, with
+    each MoE layer's float32 router logits (S, E), computed from the
+    layer's input as ``moe_forward`` computes them. With ``decode_from``,
+    the query rows at positions >= decode_from attend as the engine's
+    decode kernel does (``f32_attention``); the rows before them, as
+    Model.forward and the engine's prefill kernel do. Returns (logits,
+    router logits per MoE layer)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import embed
+    from repro_torch.models.moe import moe_forward
+    from repro_torch.models.transformer import seg_window
+    cfg = model.cfg
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    routers = []
+
+    def moe_fn(pm, h):
+        routers.append(h.reshape(-1, h.shape[-1]).float() @
+                       pm["router"]["w"])
+        return moe_forward(cfg, pm, h, return_aux=True)[0]
+
+    for seg, _, p in model.layers(params):
+        def attend(q, k, v, window=seg_window(cfg, seg)):
+            out = attn.blockwise_attention(q, k, v, causal=True,
+                                           window=window)
+            if decode_from is not None:
+                out[:, decode_from:] = f32_attention(
+                    q[:, decode_from:], k, v, decode_from, window)
+            return out
+        x = attn.gqa_layer(cfg, p, x, positions, attend,
+                           moe_fn if seg.mlp_kind == "moe" else None)
+    return model._logits(params, x), routers
+
+
+def routed(z, k: int):
+    """The experts a router's logits ``z`` (S, E) choose at each position,
+    as ``moe_forward`` chooses them (a stable descending sort), as sets."""
+    return torch.sort(z, dim=-1, descending=True, stable=True).indices[:, :k] \
+        .sort(-1).values
+
+
+def oracle_check(label: str, cfg, params, prompts, token_lists, dev):
+    """Each request's greedy tokens against the argmax of the port's
+    Model.forward over prompt + generated tokens. The engine's prefill
+    attention (the engine form of flash_prefill) rounds q, k, v and the
+    probabilities to bf16 as the oracle's blockwise_attention does, in
+    another order of sums; its decode attention (paged_attention) is
+    float32 throughout. A mismatch is allowed only where the oracle's top-2
+    logits are closer than eps = 2**-7 of the largest |logit| at that
+    position (one bf16 ulp, with room for an exponent step, as
+    ``tests/test_engine.py`` allows) and the engine chose the runner-up;
+    comparing that request stops there.
+
+    A MoE layer's routing is a discrete choice, and the bf16 rounding of
+    the oracle's attention probabilities, which the engine's decode does
+    not make, moves router logits by ~2**-9 of their size. So for a MoE
+    config the oracle runs a second time with the engine's decode
+    numerics at the generated positions (``oracle_forward`` with
+    ``decode_from``; the first run must equal Model.forward bit for bit).
+    Any other mismatch is allowed only where that witness routes some
+    position up to the differing one to other experts than Model.forward
+    does and chooses the engine's token (or the runner-up within eps);
+    comparing that request stops there. The positions the two runs route
+    differently and their router gaps are reported."""
+    from repro_torch.models.transformer import Model
+    eps = NEAR_TIE
     model = Model(cfg)
-    compared = mismatches = 0
+    n_moe = sum(seg.n for seg in model.plan if seg.mlp_kind == "moe")
+    compared = mismatches = router_stops = total = 0
+    flipped = router_rows = 0  # (generated position, MoE layer) pairs
+    flip_gaps = []  # Model.forward's router gap at each flip, relative
     min_gap_rel = math.inf
-    for prompt, out in zip(prompts, outs):
-        full = torch.tensor(prompt + out.token_ids[:-1], device=dev)
-        logits, _ = model.forward(params, full[None])
+    for prompt, tokens in zip(prompts, token_lists):
+        total += len(tokens)
+        plen = len(prompt)
+        full = torch.tensor(prompt + tokens[:-1], device=dev)[None]
+        logits, _ = model.forward(params, full)
+        if n_moe:
+            lo, ro = oracle_forward(model, params, full)
+            assert torch.equal(lo, logits) and len(ro) == n_moe, \
+                f"{label}: oracle_forward is not Model.forward"
+            lw, rw = oracle_forward(model, params, full, decode_from=plen)
+            lw = lw[0, plen - 1:, :cfg.vocab_size].float()
+            del lo
+            flips = []  # (layer, position) routed differently
+            for layer, (zo, zw) in enumerate(zip(ro, rw)):
+                diff = (routed(zo, cfg.moe_top_k) !=
+                        routed(zw, cfg.moe_top_k)).any(-1)
+                for pos in diff.nonzero().flatten().tolist():
+                    zk = torch.sort(zo[pos], descending=True).values
+                    gap = float(zk[cfg.moe_top_k - 1] - zk[cfg.moe_top_k])
+                    flips.append((layer, pos))
+                    flip_gaps.append(gap / float(zo[pos].abs().max()))
+                router_rows += zo.shape[0] - plen
+            assert all(pos >= plen for _, pos in flips), \
+                f"{label}: the witness routes a prompt position otherwise"
+            flipped += len(flips)
         # the rows that predict each new token, over the real vocab: the
         # padded entries hold the type's lowest value, which would swamp
         # the largest |logit| that scales eps
-        lg = logits[0, len(prompt) - 1:, :cfg.vocab_size].float()
-        for i, tok in enumerate(out.token_ids):
+        lg = logits[0, plen - 1:, :cfg.vocab_size].float()
+        del logits
+        for i, tok in enumerate(tokens):
             top2 = torch.topk(lg[i], 2)
             want = int(top2.indices[0])
             gap = float(top2.values[0] - top2.values[1])
@@ -522,22 +812,196 @@ def oracle_phase(dev, seed: int):
             if tok == want:
                 continue
             bound = eps * top
-            assert tok == int(top2.indices[1]) and gap < bound, \
-                f"token {i} of a {len(prompt)}-token prompt: engine {tok}, " \
-                f"oracle {want}, top-2 gap {gap} >= {bound}"
-            mismatches += 1
-            log(f"oracle phase: near-tie at token {i} of a {len(prompt)}-"
-                f"token prompt (gap {gap:.3g} < {bound:.3g}); stop there")
+            if tok == int(top2.indices[1]) and gap < bound:
+                mismatches += 1
+                log(f"{label}: near-tie at token {i} of a {plen}-token "
+                    f"prompt (gap {gap:.3g} < {bound:.3g}); stop there")
+                break
+            pos = plen - 1 + i
+            before = [f for f in flips if f[1] <= pos] if n_moe else []
+            w2 = torch.topk(lw[i], 2) if n_moe else None
+            witness = bool(before) and (tok == int(w2.indices[0]) or (
+                tok == int(w2.indices[1]) and float(
+                    w2.values[0] - w2.values[1]) < eps * float(
+                        lw[i].abs().max())))
+            assert witness, \
+                f"{label}: token {i} of a {plen}-token prompt: engine " \
+                f"{tok}, oracle {want}, top-2 gap {gap} >= {bound}" + (
+                    f"; with the engine's decode numerics the oracle routes "
+                    f"(layer, position) {before} otherwise and chooses "
+                    f"{int(w2.indices[0])}" if n_moe else "")
+            router_stops += 1
+            log(f"{label}: routing flip before token {i} of a {plen}-token "
+                f"prompt: with the engine's decode numerics the oracle "
+                f"routes (MoE layer, position) {before} to other experts "
+                f"and chooses the engine's token {tok} (Model.forward: "
+                f"{want}, top-2 gap {gap:.3g}); stop there")
             break
-    total = len(prompts) * ORACLE_NEW
     assert compared >= total // 2, f"only {compared}/{total} compared"
-    log(f"oracle phase: {compared}/{total} float32 tokens compared with "
-        f"Model.forward, {mismatches} near-tie stops, smallest top-2 gap "
-        f"{min_gap_rel:.3g} of the largest |logit| (eps {eps:.3g})")
-    del params, model
-    torch.cuda.empty_cache()
+    routing = f", the two numerics route {flipped} of {router_rows} " \
+        f"(generated position, MoE layer) pairs otherwise, at router gaps " \
+        f"{[float(f'{g:.3g}') for g in flip_gaps]} of the largest router " \
+        "logit" if n_moe else ""
+    log(f"{label}: {compared}/{total} float32 tokens compared with "
+        f"Model.forward, {mismatches} near-tie stops, {router_stops} "
+        f"routing-flip stops, smallest top-2 gap {min_gap_rel:.3g} of the "
+        f"largest |logit| (eps {eps:.3g}){routing}")
     return dict(compared=compared, total=total, near_tie_stops=mismatches,
-                eps_rel=eps, min_gap_rel=min_gap_rel)
+                routing_flip_stops=router_stops, eps_rel=eps,
+                min_gap_rel=min_gap_rel, routing_flips=flipped,
+                router_rows=router_rows, flip_router_gaps_rel=flip_gaps)
+
+
+# -- slice 1 on the card: prefix cache, window, preemption -----------------------
+
+def slice1_phase(dev, seed: int):
+    """What the serve phase bypasses, on full-width h2o-danube-1.8b in
+    float32 (``logits_fp32``):
+
+    * the prefix cache: a prompt that shares PREFIX_COMMON tokens (62 pages
+      and 8 tokens of the 63rd) with a finished one resumes its prefill
+      mid-page from the cached pages; its greedy tokens must equal a cold
+      engine's, except at a near-tie of the oracle's logits;
+    * the window: one prompt of LONG_PROMPT tokens decoding past 4096
+      positions, so both kernels apply danube's 4096-token window on the
+      engine path; its tokens against Model.forward;
+    * preemption: PREEMPT_PROMPTS on a PREEMPT_PAGES-page pool, too small
+      for all of them, so requests are preempted and recomputed; their
+      tokens against Model.forward."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.serving.api import LLMService, SamplingParams
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"),
+                              dtype="float32", logits_fp32=True)
+    params = init_params(cfg, seed=seed, device=dev)
+    rng = np.random.default_rng(seed)
+    v = cfg.vocab_size
+    stats = {}
+
+    # the prefix cache, against a cold engine
+    common = rng.integers(0, v, PREFIX_COMMON).tolist()
+    prompts = [common + rng.integers(0, v, n).tolist()
+               for n in PREFIX_SUFFIXES]
+    runs = {}
+    for cached in (True, False):
+        engine = PagedEngine(cfg, params, EngineConfig(
+            **ORACLE_ENGINE, enable_prefix_cache=cached), device=dev)
+        svc = LLMService(engine)
+        runs[cached] = [svc.generate([p], SamplingParams(
+            max_new_tokens=ORACLE_NEW))[0] for p in prompts]
+        del engine, svc
+    hit = runs[True][1].metrics.num_cached_tokens
+    assert hit == PREFIX_COMMON and hit % PS, \
+        f"the second prompt hit {hit} cached tokens, not {PREFIX_COMMON}"
+    assert runs[False][1].metrics.num_cached_tokens == 0
+    cold_check = oracle_check("slice-1 phase, prefix cache (cold engine)",
+                              cfg, params, prompts,
+                              [o.token_ids for o in runs[False]], dev)
+    for p, a, b in zip(prompts, runs[True], runs[False]):
+        a, b = a.token_ids, b.token_ids
+        if a != b:  # the first difference must be a near-tie of the oracle
+            i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            oracle_check("slice-1 phase, prefix cache (cached engine)", cfg,
+                         params, [p], [a[:i + 1]], dev)
+            oracle_check("slice-1 phase, prefix cache (cold engine)", cfg,
+                         params, [p], [b[:i + 1]], dev)
+    same = all(a.token_ids == b.token_ids
+               for a, b in zip(runs[True], runs[False]))
+    log(f"slice-1 phase: prefix cache: the second prompt resumed after "
+        f"{hit} cached tokens ({hit // PS} pages + {hit % PS} tokens); "
+        f"greedy tokens {'equal' if same else 'differ at a near-tie'} "
+        f"to a cold engine's")
+    stats["prefix_cache"] = dict(cached_tokens=hit, equal_to_cold=same,
+                                 oracle=cold_check)
+
+    # a context past the window, in both kernels
+    engine = PagedEngine(cfg, params, EngineConfig(
+        **dict(ORACLE_ENGINE, num_pages=LONG_PAGES)), device=dev)
+    prompt = rng.integers(0, v, LONG_PROMPT).tolist()
+    (out,) = LLMService(engine).generate(
+        [prompt], SamplingParams(max_new_tokens=LONG_NEW))
+    chunks = engine.prefill_chunks
+    del engine
+    ctx = LONG_PROMPT + LONG_NEW - 1
+    assert ctx > cfg.sliding_window
+    stats["window"] = dict(prompt=LONG_PROMPT, context=ctx,
+                           prefill_chunks=chunks, oracle=oracle_check(
+                               "slice-1 phase, window", cfg, params,
+                               [prompt], [out.token_ids], dev))
+    log(f"slice-1 phase: window: a {LONG_PROMPT}-token prompt in {chunks} "
+        f"chunks, decoded to context {ctx} past the {cfg.sliding_window}-"
+        "token window")
+
+    # preemption and recompute on a tight pool
+    engine = PagedEngine(cfg, params, EngineConfig(
+        **dict(ORACLE_ENGINE, num_pages=PREEMPT_PAGES)), device=dev)
+    prompts = [rng.integers(0, v, n).tolist() for n in PREEMPT_PROMPTS]
+    outs = LLMService(engine).generate(
+        prompts, SamplingParams(max_new_tokens=PREEMPT_NEW))
+    preemptions = engine.preemptions
+    del engine
+    assert preemptions > 0, "the tight pool forced no preemption"
+    stats["preemption"] = dict(pages=PREEMPT_PAGES, prompts=PREEMPT_PROMPTS,
+                               preemptions=preemptions,
+                               oracle=oracle_check(
+                                   "slice-1 phase, preemption", cfg, params,
+                                   prompts, [o.token_ids for o in outs],
+                                   dev))
+    log(f"slice-1 phase: preemption: {len(prompts)} prompts of "
+        f"{PREEMPT_PROMPTS[0]} tokens + {PREEMPT_NEW} new on "
+        f"{PREEMPT_PAGES} pages of {PS}: {preemptions} preemptions, "
+        "recomputed")
+    del params
+    torch.cuda.empty_cache()
+    stats.update(phase_end("slice-1 phase", t0))
+    return stats
+
+
+# -- MoE and the dense GQA configs --------------------------------------------------
+
+def moe_phases(dev, seed: int):
+    """llama4-scout at full width: served in bf16 at MOE_LAYERS of its 48
+    layers under the serve traffic, then its float32 oracle at
+    ORACLE_LAYERS layers with the capacity factor at E / top_k, so that no
+    token is dropped and the chunked engine and the monolithic oracle
+    route alike."""
+    from repro_torch.configs import get_config
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    serve = serve_model("MoE serve phase", cfg, dev, seed,
+                        serve_requests(cfg.vocab_size, seed), SERVE_ENGINE)
+    oracle = oracle_model("MoE oracle", dataclasses.replace(
+        full, num_layers=ORACLE_LAYERS,
+        capacity_factor=full.num_experts / full.moe_top_k), dev, seed + 1)
+    return dict(serve=serve, oracle=oracle)
+
+
+def dense_phases(dev, seed: int):
+    """paper-opt-13b whole under the serve traffic; granite-20b,
+    command-r-35b and mistral-large-123b at DENSE_LAYERS under
+    SHORT_PROMPTS; then each one's float32 oracle at ORACLE_LAYERS."""
+    from repro_torch.configs import get_config
+    serves, oracles = {}, {}
+    cfg = get_config("paper-opt-13b")
+    serves[cfg.arch_id] = serve_model(
+        "OPT serve phase", cfg, dev, seed,
+        serve_requests(cfg.vocab_size, seed), SERVE_ENGINE)
+    for arch, layers in DENSE_LAYERS.items():
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
+        serves[arch] = serve_model(f"{arch} serve phase", cfg, dev, seed,
+                                   short_requests(cfg.vocab_size, seed),
+                                   SHORT_ENGINE)
+    for arch in ["paper-opt-13b", *DENSE_LAYERS]:
+        oracles[arch] = oracle_model(f"{arch} oracle", dataclasses.replace(
+            get_config(arch), num_layers=ORACLE_LAYERS), dev, seed + 1)
+    return dict(serve=serves, oracle=oracles)
 
 
 # -- mamba2 phase -----------------------------------------------------------------
@@ -568,7 +1032,8 @@ def mamba_phase(dev, seed: int):
     from repro_torch.models.transformer import Model
 
     cfg = get_config("mamba2-1.3b")  # full width, all 48 layers
-    t0 = time.monotonic()
+    t_phase = t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=seed, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
@@ -624,7 +1089,8 @@ def mamba_phase(dev, seed: int):
     del params, caches, logits
     torch.cuda.empty_cache()
     oracle = mamba_oracle(dev, seed)
-    return dict(params=n_params, batch=MAMBA_BATCH, prompt=MAMBA_PROMPT,
+    return dict(**phase_end("mamba2 phase", t_phase),
+                params=n_params, batch=MAMBA_BATCH, prompt=MAMBA_PROMPT,
                 prefill_ms=prefill_s * 1e3,
                 prefill_tokens_per_s=prompt_tokens / prefill_s,
                 decode_steps=MAMBA_NEW, decode_ms=decode_s * 1e3,
@@ -725,21 +1191,26 @@ def mamba_oracle(dev, seed: int):
 
 # -- timing at the serve phase's shapes -----------------------------------------
 
-def timing_phase(dev, seed: int, launches: int):
+def timing_phase(dev, seed: int, launches: int,
+                 arch: str = "h2o-danube-1.8b", max_layers=None):
     """paged_attention at the serve phase's decode shapes: 8 slots, each
     context at its request's prompt + half the new tokens, bf16 pools of the
-    engine's geometry for all 24 layers, cycled so that every call reads
-    its layer's K/V from device memory as a decode step does."""
+    engine's geometry for all of ``arch``'s layers (at most
+    ``max_layers``), at its widths, cycled so that every call reads its
+    layer's K/V from device memory as a decode step does."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
-    cfg = get_config("h2o-danube-1.8b")
+    cfg = get_config(arch)
     L, dtype, window = cfg.num_layers, torch.bfloat16, cfg.sliding_window
+    L = min(L, max_layers or L)
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     lens = [p + SERVE_NEW // 2 for p in SERVE_PROMPTS]
-    q, kp, vp, bt, ctx = paged_inputs(gen, dev, dtype, lens, layers=L)
+    q, kp, vp, bt, ctx = paged_inputs(gen, dev, dtype, lens, layers=L,
+                                      widths=(h, hkv, dh))
     b, smax = len(lens), bt.shape[1] * PS
 
     out = paged_attention(q, kp[0], vp[0], bt, ctx, page_size=PS,
@@ -747,18 +1218,20 @@ def timing_phase(dev, seed: int, launches: int):
     want = ref.paged_attention(q, kp[0], vp[0], bt, ctx, page_size=PS,
                                window=window)
     torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(out.float(), want.float(), **TOL_BF16_OUT)
     err = (out.float() - want.float()).abs().max().item()
 
     # the library yardstick: SDPA over K/V gathered per layer beforehand
     # (the gather is not timed), GQA heads shared, a key mask per row
     idx = bt.long()
-    kg = [kp[i][idx].reshape(b, smax, HKV, DH).transpose(1, 2)
+    kg = [kp[i][idx].reshape(b, smax, hkv, dh).transpose(1, 2)
           for i in range(L)]
-    vg = [vp[i][idx].reshape(b, smax, HKV, DH).transpose(1, 2)
+    vg = [vp[i][idx].reshape(b, smax, hkv, dh).transpose(1, 2)
           for i in range(L)]
     pos = torch.arange(smax, device=dev)
-    valid = (pos[None] < ctx[:, None]) & \
-        (pos[None] > ctx[:, None] - 1 - window)
+    valid = pos[None] < ctx[:, None]
+    if window is not None:
+        valid &= pos[None] > ctx[:, None] - 1 - window
     mask = valid[:, None, None, :]
     q4 = q[:, :, None, :]
     lib = F.scaled_dot_product_attention(q4, kg[0], vg[0], attn_mask=mask,
@@ -783,11 +1256,11 @@ def timing_phase(dev, seed: int, launches: int):
     # the least the card could take: each input byte read once, the output
     # written once (K/V of the valid positions only), or the operations
     esz = torch.finfo(dtype).bits // 8
-    valid_tokens = sum(min(x, window) for x in lens)
+    valid_tokens = sum(min(x, window or x) for x in lens)
     n_pages = sum(-(-x // PS) for x in lens)
-    nbytes = valid_tokens * HKV * DH * 2 * esz + 2 * b * H * DH * esz \
+    nbytes = valid_tokens * hkv * dh * 2 * esz + 2 * b * h * dh * esz \
         + 4 * (n_pages + b)
-    flops = 4 * H * DH * valid_tokens
+    flops = 4 * h * dh * valid_tokens
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     return dict(name="paged_attention", route="cuda",
                 source="src/repro_torch/csrc/paged_attention.cu",
@@ -795,8 +1268,10 @@ def timing_phase(dev, seed: int, launches: int):
                 launches=launches, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms), \
-        dict(batch=b, context_lens=lens, bytes=nbytes, flops=flops,
-             dtype="bfloat16", window=window, device_ms=device_ms,
+        dict(arch=arch, g=h // hkv, heads=h, kv_heads=hkv, head_dim=dh,
+             layers_cycled=L, batch=b, context_lens=lens, bytes=nbytes,
+             flops=flops, dtype="bfloat16", window=window,
+             device_ms=device_ms,
              plain_device_ms=plain_device_ms,
              library_device_ms=library_device_ms, host_us=host_us,
              library_host_us=library_host_us)
@@ -811,30 +1286,35 @@ def bound(nbytes: int, flops: int, dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def flash_timing(dev, seed: int, launches: int):
+def flash_timing(dev, seed: int, launches: int,
+                 arch: str = "h2o-danube-1.8b", max_layers=None,
+                 chunk_shapes=ENGINE_CHUNKS):
     """The engine form of flash_prefill at a serve-phase chunk: the second
     512-token chunk of the 1024-token prompt (positions 512..1023 over 1024
-    keys), bf16 pools of the serve engine's geometry for all 24 layers,
-    cycled so that every call reads its layer's K/V from device memory.
-    Then the kernel and SDPA at each ``ENGINE_CHUNKS`` shape."""
+    keys), bf16 pools of the serve engine's geometry for all of ``arch``'s
+    layers (at most ``max_layers``), at its widths, cycled so that every
+    call reads its layer's K/V from device memory. Then the kernel and
+    SDPA at each of ``chunk_shapes``."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    prefill_attention_paged)
-    cfg = get_config("h2o-danube-1.8b")
+    cfg = get_config(arch)
     L, dtype, window = cfg.num_layers, torch.bfloat16, cfg.sliding_window
+    L = min(L, max_layers or L)
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s, q_offset = 512, 512
     ctx = q_offset + s
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    shape = (L, SERVE_ENGINE["num_pages"] + 1, PS, HKV, DH)
+    shape = (L, SERVE_ENGINE["num_pages"] + 1, PS, hkv, dh)
     kp = torch.randn(shape, generator=gen, device=dev).to(dtype)
     vp = torch.randn(shape, generator=gen, device=dev).to(dtype)
     n = ctx // PS
     pages = torch.randperm(shape[1] - 1, generator=gen, device=dev)[:n] \
         .to(torch.int32)
-    q = torch.randn((1, s, H, DH), generator=gen, device=dev).to(dtype)
+    q = torch.randn((1, s, h, dh), generator=gen, device=dev).to(dtype)
 
     out = prefill_attention_paged(q, kp[0], vp[0], pages, q_offset=q_offset,
                                   window=window)
@@ -847,14 +1327,15 @@ def flash_timing(dev, seed: int, launches: int):
     # (the gather is not timed), GQA heads shared, the causal mask at the
     # chunk's offset
     idx = pages.long()
-    kg = [kp[i][idx].reshape(1, ctx, HKV, DH).transpose(1, 2)
+    kg = [kp[i][idx].reshape(1, ctx, hkv, dh).transpose(1, 2)
           for i in range(L)]
-    vg = [vp[i][idx].reshape(1, ctx, HKV, DH).transpose(1, 2)
+    vg = [vp[i][idx].reshape(1, ctx, hkv, dh).transpose(1, 2)
           for i in range(L)]
     qpos = q_offset + torch.arange(s, device=dev)
     kpos = torch.arange(ctx, device=dev)
-    mask = (kpos[None] <= qpos[:, None]) & (kpos[None] > qpos[:, None] -
-                                            window)
+    mask = kpos[None] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None] > qpos[:, None] - window
     q4 = q.transpose(1, 2)
     lib = F.scaled_dot_product_attention(q4, kg[0], vg[0], attn_mask=mask,
                                          enable_gqa=True)
@@ -880,8 +1361,8 @@ def flash_timing(dev, seed: int, launches: int):
     # operations: QK^T and PV over the valid (query, key) pairs
     esz = torch.finfo(dtype).bits // 8
     pairs = int(mask.sum())
-    nbytes = 2 * s * H * DH * esz + 2 * ctx * HKV * DH * esz + 4 * n
-    flops = 4 * H * DH * pairs
+    nbytes = 2 * s * h * dh * esz + 2 * ctx * hkv * dh * esz + 4 * n
+    flops = 4 * h * dh * pairs
     bound_ms, bound_by = bound(nbytes, flops, dtype)
 
     # the kernel alone at each of the kernel phase's engine chunk shapes,
@@ -889,7 +1370,7 @@ def flash_timing(dev, seed: int, launches: int):
     chunks = []
     all_pages = torch.randperm(shape[1] - 1, generator=gen, device=dev) \
         .to(torch.int32)
-    for cs, co in ENGINE_CHUNKS:
+    for cs, co in chunk_shapes:
         cctx = co + cs
         cn = -(-cctx // PS)
         cpages = all_pages[:cn]
@@ -902,17 +1383,17 @@ def flash_timing(dev, seed: int, launches: int):
         cmask = (ckpos[None] <= cpos[:, None]) & \
             (ckpos[None] > cpos[:, None] - window)
         cidx = cpages.long()
-        ck = [kp[i][cidx].reshape(1, cn * PS, HKV, DH)[:, :cctx]
+        ck = [kp[i][cidx].reshape(1, cn * PS, hkv, dh)[:, :cctx]
               .transpose(1, 2) for i in range(L)]
-        cv = [vp[i][cidx].reshape(1, cn * PS, HKV, DH)[:, :cctx]
+        cv = [vp[i][cidx].reshape(1, cn * PS, hkv, dh)[:, :cctx]
               .transpose(1, 2) for i in range(L)]
         cq4 = cq.transpose(1, 2)
         clib, clib_dev, _ = cuda_ms(lambda i: F.scaled_dot_product_attention(
             cq4, ck[i % L], cv[i % L], attn_mask=cmask, enable_gqa=True),
             iters)
         cpairs = int(cmask.sum())
-        cb, _ = bound(2 * cs * H * DH * esz + 2 * cctx * HKV * DH * esz,
-                      4 * H * DH * cpairs, dtype)
+        cb, _ = bound(2 * cs * h * dh * esz + 2 * cctx * hkv * dh * esz,
+                      4 * h * dh * cpairs, dtype)
         chunks.append(dict(chunk=cs, q_offset=co, valid_pairs=cpairs,
                            ms=cms, library_ms=clib, device_ms=cdev,
                            library_device_ms=clib_dev, bound_ms=cb))
@@ -923,8 +1404,10 @@ def flash_timing(dev, seed: int, launches: int):
                 launches=launches, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms), \
-        dict(chunk=s, q_offset=q_offset, keys=ctx, valid_pairs=pairs,
-             bytes=nbytes, flops=flops, dtype="bfloat16", window=window,
+        dict(arch=arch, g=h // hkv, heads=h, kv_heads=hkv, head_dim=dh,
+             layers_cycled=L, chunk=s, q_offset=q_offset, keys=ctx,
+             valid_pairs=pairs, bytes=nbytes, flops=flops,
+             dtype="bfloat16", window=window,
              engine_chunks=chunks, device_ms=device_ms,
              plain_device_ms=plain_device_ms,
              library_device_ms=library_device_ms, host_us=host_us,
@@ -1079,31 +1562,57 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    cases = kernel_phase(dev) + flash_phase(dev) + ssd_phase(dev)
+    cases = kernel_phase(dev) + flash_phase(dev) + gqa_group_phase(dev) \
+        + ssd_phase(dev)
     serve = serve_phase(dev, seed=0)
     oracle = oracle_phase(dev, seed=1)
+    slice1 = slice1_phase(dev, seed=8)
     mamba = mamba_phase(dev, seed=3)
+    moe = moe_phases(dev, seed=9)
+    dense = dense_phases(dev, seed=10)
     paged, paged_shapes = timing_phase(dev, seed=2,
                                        launches=serve["launches"])
     flash, flash_shapes = flash_timing(dev, seed=5,
                                        launches=serve["prefill_launches"])
     ssd, ssd_shapes = ssd_timing(dev, seed=6, launches=mamba["launches"])
+    served = dict(dense["serve"], **{MOE_ARCH: moe["serve"]})
+    gqa_timed = {}
+    for arch in GQA_TIMING:
+        run = served[arch]
+        gqa_timed[arch] = [
+            timing_phase(dev, seed=2, launches=run["launches"], arch=arch,
+                         max_layers=TIMING_LAYERS),
+            flash_timing(dev, seed=5, launches=run["prefill_launches"],
+                         arch=arch, max_layers=TIMING_LAYERS,
+                         chunk_shapes=())]
 
     card = card_line()
-    log(f"serve phase on {card}: {serve['tokens_per_s']:.1f} tokens/s "
-        f"({serve['tokens']} tokens in {serve['wall_s']:.2f}s), mean TTFT "
-        f"{serve['ttft_mean_s'] * 1e3:.1f} ms, max TTFT "
-        f"{serve['ttft_max_s'] * 1e3:.1f} ms")
+    for label, run in [("serve phase", serve), *(
+            (f"{arch} serve phase", run) for arch, run in served.items())]:
+        log(f"{label} on {card}: {run['arch']} {run['layers']}L, "
+            f"{run['tokens_per_s']:.1f} tokens/s ({run['tokens']} tokens in "
+            f"{run['wall_s']:.2f}s), mean TTFT "
+            f"{run['ttft_mean_s'] * 1e3:.1f} ms, max TTFT "
+            f"{run['ttft_max_s'] * 1e3:.1f} ms, {run['decode_steps']} decode "
+            f"steps, {run['prefill_chunks']} prefill chunks, launches "
+            f"paged_attention {run['launches']}, flash_prefill "
+            f"{run['prefill_launches']}")
     log(f"mamba2 phase on {card}: prefill {mamba['prefill_ms']:.1f} ms "
         f"for {MAMBA_BATCH} x {MAMBA_PROMPT} tokens, decode "
         f"{mamba['decode_tokens_per_s']:.1f} tokens/s")
     log_timings(card, [(paged, paged_shapes), (flash, flash_shapes),
                        (ssd, ssd_shapes)])
+    for arch, timed in gqa_timed.items():
+        log_timings(f"{card} at {arch}'s widths (G {timed[0][1]['g']})",
+                    timed)
     log("detail " + json.dumps(dict(
-        card=card, serve=serve, oracle=oracle, mamba=mamba,
-        kernel_cases=cases, timing=dict(paged_attention=paged_shapes,
-                                        flash_prefill=flash_shapes,
-                                        ssd_scan=ssd_shapes))))
+        card=card, serve=serve, oracle=oracle, slice1=slice1, mamba=mamba,
+        moe=moe, dense=dense, kernel_cases=cases,
+        timing=dict(paged_attention=paged_shapes,
+                    flash_prefill=flash_shapes, ssd_scan=ssd_shapes,
+                    gqa={arch: dict(paged_attention=dict(t[0][0], **t[0][1]),
+                                    flash_prefill=dict(t[1][0], **t[1][1]))
+                         for arch, t in gqa_timed.items()}))))
     log(card)
     log(json.dumps({"kernels": [paged, flash, ssd]}))
     log(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import gqa_init
 from repro_torch.models.layers import embed_init, mlp_init, norm_init
+from repro_torch.models.moe import moe_init
 from repro_torch.models.ssm import ssm_init
 from repro_torch.models.transformer import stack_plan
 
@@ -64,7 +65,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     """The reference's parameter tree for ``cfg``, drawn on ``device`` from
     a ``torch.Generator`` seeded with ``seed``: dense weights normal *
     1/sqrt(d_in), the embedding normal * 0.02 over the 512-padded vocab,
-    norm scales one; an SSM layer's conv weights normal * 0.2, A_log =
+    norm scales one; a MoE layer's float32 router normal * 1/sqrt(d), its
+    experts' up and gate normal * 1/sqrt(d) and down normal * 1/sqrt(ff);
+    an SSM layer's conv weights normal * 0.2, A_log =
     log(1..H), D one, dt_bias and the conv bias zero. Same shapes and
     distributions as ``Model.init``; not the same numbers (JAX's generator
     differs)."""
@@ -86,6 +89,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
             p["mlp"] = mlp_init(gen, d, cfg.d_ff, dt, dev,
                                 gated=cfg.gated_mlp, lead=lead,
                                 bias=cfg.use_bias)
+        if seg.mlp_kind == "moe":
+            p["ln2"] = norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias)
+            p["mlp"] = moe_init(cfg, gen, dt, dev, lead=lead)
         segments.append(p)
     return {
         "embed": embed_init(gen, cfg.vocab_size, d, dt, dev),

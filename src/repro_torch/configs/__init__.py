@@ -6,7 +6,8 @@ a ``torch.dtype`` instead. ``get_config`` resolves dashed ids
 (``--arch h2o-danube-1.8b``) to a module of this package; ``smoke_config``
 returns the reduced variant the CPU tests use (2 layers, d_model 256),
 built exactly as the reference builds it. Only the archs the port runs so
-far have a module here.
+far have a module here: the GQA decoders (dense, and MoE on GQA) and
+mamba2.
 """
 
 from __future__ import annotations
@@ -118,6 +119,11 @@ class ArchConfig:
 ARCH_IDS = [
     "h2o-danube-1.8b",
     "mamba2-1.3b",
+    "paper-opt-13b",
+    "granite-20b",
+    "command-r-35b",
+    "mistral-large-123b",
+    "llama4-scout-17b-a16e",
 ]
 
 
@@ -135,8 +141,9 @@ def get_config(arch_id: str) -> ArchConfig:
 
 
 def smoke_config(arch_id: str) -> ArchConfig:
-    """Reduced variant of the same family: 2 layers, d_model 256, the
-    reference's reduction rules (``repro.configs.smoke_config``)."""
+    """Reduced variant of the same family: 2 layers, d_model 256, <= 4
+    experts, the reference's reduction rules (``repro.configs.
+    smoke_config``)."""
     cfg = get_config(arch_id)
     heads = min(cfg.num_heads, 4) or 0
     kv = min(cfg.num_kv_heads, heads) if cfg.num_kv_heads else 0
@@ -151,6 +158,16 @@ def smoke_config(arch_id: str) -> ArchConfig:
         encoder_layers=2 if cfg.is_encdec else 0,
         num_media_tokens=8 if cfg.frontend != "none" else 0,
     )
+    if cfg.attention == "mla":
+        updates.update(kv_lora_rank=64, q_lora_rank=96, qk_nope_head_dim=32,
+                       qk_rope_head_dim=16, v_head_dim=32)
+    if cfg.is_moe:
+        # capacity_factor = E / top_k: no token is dropped, so smoke decode
+        # matches the teacher-forced oracle exactly
+        updates.update(num_experts=4, moe_top_k=min(cfg.moe_top_k, 2),
+                       moe_d_ff=128,
+                       num_shared_experts=min(cfg.num_shared_experts, 1),
+                       capacity_factor=4.0)
     if cfg.ssm_state:
         updates.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=32)
     if cfg.sliding_window:

@@ -77,7 +77,7 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
-def gqa_layer(cfg, p, x, positions, attend):
+def gqa_layer(cfg, p, x, positions, attend, mlp_fn=None):
     """One full GQA transformer layer, parameterised by the attention
     callable: the layer body shared by ``Model.forward`` and the engine's
     paged prefill and decode.
@@ -85,7 +85,8 @@ def gqa_layer(cfg, p, x, positions, attend):
     ``x``: (B, S, D); ``positions``: (S,) or (B, S) absolute positions.
     ``attend(q, k, v) -> ctx`` receives roped q (B, S, H, Dh) and roped k /
     raw v (B, S, Hkv, Dh) and returns the context (B, S, H, Dv). Pre-norm,
-    residual attention, pre-norm residual MLP.
+    residual attention, pre-norm residual MLP. ``mlp_fn(p_mlp, h) -> out``
+    overrides the dense MLP (MoE segments pass their expert dispatch).
     """
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -98,7 +99,7 @@ def gqa_layer(cfg, p, x, positions, attend):
     ctx = attend(q, k, v)
     y = x + dense(p["attn"]["wo"], ctx.reshape(b, s, -1))
     h2 = rms_norm(p["ln2"], y, cfg.norm_eps)
-    y = y + mlp(p["mlp"], h2)
+    y = y + (mlp(p["mlp"], h2) if mlp_fn is None else mlp_fn(p["mlp"], h2))
     return y
 
 

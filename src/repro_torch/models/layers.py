@@ -18,16 +18,29 @@ import torch.nn.functional as F
 # on the target device. ``lead`` prepends the stacked-layer axis.
 # ---------------------------------------------------------------------------
 
-def _normal(gen, shape, scale, dtype, device):
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+# float32 draws at a time: a full-width stacked weight (llama4's experts
+# hold 16 x 5120 x 8192 per layer) is drawn in slices, so the float32
+# temporary stays at 512 MiB however large the tensor
+NORMAL_CHUNK = 1 << 27
+
+
+def normal_init(gen, shape, scale, dtype, device):
+    """normal * scale of ``shape`` in ``dtype``, drawn in float32."""
+    n = math.prod(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, n, NORMAL_CHUNK):
+        w = torch.randn(min(NORMAL_CHUNK, n - i), generator=gen,
+                        dtype=torch.float32, device=device)
+        flat[i:i + w.numel()] = w.mul_(scale)
+    return out
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, device, *, lead=(),
                bias: bool = False):
     """normal * 1/sqrt(d_in) (``layers.py:41-47``)."""
-    p = {"w": _normal(gen, tuple(lead) + (d_in, d_out), 1.0 / math.sqrt(d_in),
-                      dtype, device)}
+    p = {"w": normal_init(gen, tuple(lead) + (d_in, d_out),
+                          1.0 / math.sqrt(d_in), dtype, device)}
     if bias:
         p["b"] = torch.zeros(tuple(lead) + (d_out,), dtype=dtype,
                              device=device)
@@ -53,8 +66,8 @@ def mlp_init(gen, d: int, ff: int, dtype, device, *, gated: bool, lead=(),
 
 def embed_init(gen, vocab: int, d: int, dtype, device):
     """normal * 0.02 over the 512-padded vocab (``layers.py:143-145``)."""
-    return {"table": _normal(gen, (pad_vocab(vocab), d), 0.02, dtype,
-                             device)}
+    return {"table": normal_init(gen, (pad_vocab(vocab), d), 0.02, dtype,
+                                 device)}
 
 
 # ---------------------------------------------------------------------------

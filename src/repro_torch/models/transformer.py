@@ -1,6 +1,8 @@
 """Decoder stack (``repro.models.transformer``) for the plans ported so
 far: dense GQA, global or sliding window (danube: ``[24 x swa-dense]``),
-and the attention-free SSM plan (mamba2: ``[48 x ssm]``).
+MoE on GQA (llama4-scout: ``[48 x gqa-moe]``, after ``first_k_dense``
+dense layers where a config has them), and the attention-free SSM plan
+(mamba2: ``[48 x ssm]``).
 
 A model is a sequence of **segments**: runs of identical layers whose
 parameters are stacked along a leading layer axis, exactly as the
@@ -25,6 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import embed, rms_norm, unembed
+from repro_torch.models.moe import moe_forward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,19 +39,27 @@ class Segment:
 
 
 def stack_plan(cfg: ArchConfig) -> List[Segment]:
-    """The reference's plan (``transformer.py:51``) for a dense GQA or an
-    SSM decoder; the other families come with their slices of the port."""
+    """The reference's plan (``transformer.py:51``) for a GQA decoder,
+    dense or MoE, or an SSM decoder; the other families come with their
+    slices of the port."""
     if cfg.family == "ssm":
         if cfg.d_ff:
             raise NotImplementedError(
                 f"{cfg.arch_id}: an SSM plan with an MLP is not ported yet")
         return [Segment(cfg.num_layers, "ssm", "none", "none")]
-    if cfg.is_hybrid or cfg.is_moe or cfg.is_encdec or \
-            cfg.attention != "gqa":
+    if cfg.is_hybrid or cfg.is_encdec or cfg.attention != "gqa":
         raise NotImplementedError(
-            f"{cfg.arch_id}: only the dense GQA and SSM plans are ported "
-            "so far")
+            f"{cfg.arch_id}: only the GQA (dense or MoE) and SSM plans are "
+            "ported so far")
     attn_kind = "swa" if cfg.sliding_window else "global"
+    if cfg.is_moe:
+        segs = []
+        if cfg.first_k_dense:
+            segs.append(Segment(cfg.first_k_dense, "gqa", "dense",
+                                attn_kind))
+        segs.append(Segment(cfg.num_layers - cfg.first_k_dense, "gqa", "moe",
+                            attn_kind))
+        return segs
     return [Segment(cfg.num_layers, "gqa", "dense", attn_kind)]
 
 
@@ -104,11 +115,19 @@ class Model:
 
     @torch.no_grad()
     def forward(self, params, tokens):
-        """Teacher-forced logits (B, S, V) and the MoE aux loss (zero for a
-        dense plan), as the reference returns them."""
+        """Teacher-forced logits (B, S, V) and the MoE aux loss summed over
+        the MoE layers (zero for a dense plan), as the reference returns
+        them (``transformer.py:325-345``)."""
         cfg = self.cfg
         x = embed(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        aux = [torch.zeros((), device=tokens.device)]
+
+        def moe_fn(pm, h):
+            out, layer_aux = moe_forward(cfg, pm, h, return_aux=True)
+            aux[0] = aux[0] + layer_aux
+            return out
+
         for seg, _, p in self.layers(params):
             if seg.mixer == "ssm":
                 x = ssm_layer(cfg, p, x)
@@ -119,9 +138,9 @@ class Model:
                 return attn.blockwise_attention(q, k, v, causal=True,
                                                 window=window)
 
-            x = attn.gqa_layer(cfg, p, x, positions, attend)
-        logits = self._logits(params, x)
-        return logits, torch.zeros((), device=logits.device)
+            x = attn.gqa_layer(cfg, p, x, positions, attend,
+                               moe_fn if seg.mlp_kind == "moe" else None)
+        return self._logits(params, x), aux[0]
 
     def _require_ssm(self, what: str):
         if any(seg.mixer != "ssm" for seg in self.plan):

@@ -31,7 +31,8 @@ KV pools here are updated **in place** (``index_put_``): the decode and
 prefill writes, the copy-on-write page copies and best-of-n forks all write
 into ``k_pages`` / ``v_pages`` directly. PyTorch runs eagerly, so the
 reference's power-of-two padding of chunk lengths and page lists (a jit
-shape bucket) is gone; results are the same.
+shape bucket) is gone. Its one visible effect is kept: a MoE layer sizes
+its experts' capacity from the padded chunk length (:func:`_pow2_bucket`).
 
 The engine implements :class:`~repro_torch.serving.api.ServingBackend`;
 drive it through :class:`~repro_torch.serving.api.LLMService`. Best-of-n
@@ -62,8 +63,18 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import sampling
 from repro_torch.models.attention import gqa_layer
 from repro_torch.models.layers import embed, rms_norm, unembed
+from repro_torch.models.moe import moe_forward
 from repro_torch.models.transformer import Model, seg_window
 from repro_torch.serving.api import SamplingParams
+
+
+def _pow2_bucket(n: int, floor: int = 8) -> int:
+    """Smallest power of two >= n (>= floor): the reference pads each
+    prefill chunk to this length (``repro/serving/engine.py:85-93``)."""
+    p = floor
+    while p < n:
+        p *= 2
+    return p
 
 
 @dataclasses.dataclass
@@ -142,6 +153,15 @@ class PagedEngine:
 
     # -- model steps ------------------------------------------------------------
 
+    def _mlp_fn(self, seg, capacity_tokens=None):
+        """Per-segment MLP dispatch for the shared layer body: dense
+        segments use the layer's MLP, MoE segments the expert dispatch, with
+        their capacity sized from ``capacity_tokens`` where given."""
+        if seg.mlp_kind == "moe":
+            return lambda pm, h: moe_forward(self.cfg, pm, h,
+                                             capacity_tokens=capacity_tokens)
+        return None
+
     @torch.no_grad()
     def _prefill_chunk(self, tokens, page_ids, start: int):
         """One prefill chunk at absolute positions ``[start, start + S)``.
@@ -154,6 +174,13 @@ class PagedEngine:
         a query's position are masked, so stale slot contents past the
         chunk's end are never read. Returns the logits (V,) of the
         chunk's last position.
+
+        A MoE layer's capacity is that of the reference's padded chunk,
+        ``_pow2_bucket(S)`` tokens (``repro/serving/engine.py:876`` pads
+        the chunk, ``repro/models/moe.py:37-39`` sizes the capacity from
+        it). The pad tokens would come after every real token in the
+        experts' place order, so they never move a real token's place: the
+        count alone is passed, the chunk is not padded.
         """
         cfg, ps, dev = self.cfg, self.ecfg.page_size, self.device
         s = len(tokens)
@@ -163,6 +190,7 @@ class PagedEngine:
         tok_pages = pages.long()[positions // ps]
         in_page = positions % ps
         x = embed(self.params["embed"], toks[None])  # (1, s, d)
+        s_pad = _pow2_bucket(s)
         for seg, li, p in self.model.layers(self.params):
             kp, vp = self.k_pages[li], self.v_pages[li]
 
@@ -172,7 +200,8 @@ class PagedEngine:
                 return prefill_attention_paged(q, kp, vp, pages,
                                                q_offset=start, window=window)
 
-            x = gqa_layer(cfg, p, x, positions, attend)
+            x = gqa_layer(cfg, p, x, positions, attend,
+                          self._mlp_fn(seg, s_pad))
         x = rms_norm(self.params["final_norm"], x[:, -1:], cfg.norm_eps)
         logits = unembed(self.params["embed"], x, cfg.vocab_size,
                          fp32=cfg.logits_fp32)
@@ -186,7 +215,9 @@ class PagedEngine:
         tokens, positions, ctx_lens: (n,) with ctx_len 0 for an inactive
         slot; block_tables: (n, width). Each slot's new K/V is written into
         its page (inactive slots write to the trash page), then paged
-        attention runs over the block tables. Returns logits (n, V).
+        attention runs over the block tables. Returns logits (n, V). Every
+        row goes through a MoE layer's routing, inactive ones too, as in
+        the reference: they take places in the experts' capacity.
         """
         cfg, ecfg, dev = self.cfg, self.ecfg, self.device
         n, ps = len(tokens), ecfg.page_size
@@ -209,7 +240,7 @@ class PagedEngine:
                                       page_size=ps, window=window)
                 return att.reshape(n, 1, cfg.num_heads, cfg.head_dim)
 
-            x = gqa_layer(cfg, p, x, pos[:, None], attend)
+            x = gqa_layer(cfg, p, x, pos[:, None], attend, self._mlp_fn(seg))
         x = rms_norm(self.params["final_norm"], x, cfg.norm_eps)
         logits = unembed(self.params["embed"], x, cfg.vocab_size,
                          fp32=cfg.logits_fp32)[:, 0]
@@ -359,10 +390,15 @@ class PagedEngine:
             width = max(len(self.scheduler.tables[r.request_id].blocks)
                         for r in plan.decode)
             # unused entries stay 0: a real page (the trash page is
-            # num_pages), and one no valid position reaches
+            # num_pages), and one no valid position reaches. A row that is
+            # not decoding (a free slot, or one still in prefill) is token
+            # 0 at position 0, as in the reference
+            # (``repro/serving/engine.py:663-669, 920``): a MoE layer
+            # routes it, so its token decides which expert place it takes
             bt = np.zeros((n, width), np.int32)
             lens = np.zeros(n, np.int32)
             pos = np.zeros(n, np.int64)
+            toks = np.zeros(n, np.int64)
             row_reqs: List[Optional[Request]] = [None] * n
             for req in plan.decode:
                 slot = self.slots[req.request_id]
@@ -372,8 +408,9 @@ class PagedEngine:
                 # its KV is written the attention span is ctx_len tokens
                 lens[slot] = req.context_len
                 pos[slot] = req.context_len - 1
+                toks[slot] = self.last_token[slot]
                 row_reqs[slot] = req
-            logits = self._decode(self.last_token.copy(), pos, bt, lens)
+            logits = self._decode(toks, pos, bt, lens)
             sampled, lps = self._sample_rows(logits, row_reqs)
             for req in plan.decode:
                 slot = self.slots[req.request_id]

@@ -139,6 +139,44 @@ def test_cuda_kernel_split_contexts_match_plain(cuda, lens, window, g,
     assert (m[empty] == tref.NEG_INF).all()
 
 
+# GQA groups outside {1, 2, 4, 8}: the decode kernel takes them 8 heads at
+# a time with guards. (H, Hkv): llama4-scout's G 5, G 6, mistral-large's
+# G 12 and granite's MQA G 48, all at head_dim 128
+_GROUPS = [(40, 8), (12, 2), (96, 8), (48, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("h,hkv", _GROUPS,
+                         ids=[f"g{h // hkv}" for h, hkv in _GROUPS])
+def test_cuda_kernel_gqa_groups_match_plain(cuda, h, hkv, window, dtype):
+    """Decode at G 5, 6, 12 and 48 with head_dim 128: ragged contexts, an
+    empty row, and contexts split over several blocks (merged on the
+    card); out, m and l against the plain version."""
+    dh, ps = 128, 16
+    q, kp, vp, bt, lens = _split_inputs(
+        [37, 0, _SPLIT + 5, 3 * _SPLIT - 9, 16], h, hkv, dh, ps,
+        seed=h + hkv)
+    args = [t.to(cuda) for t in _torch(q, kp, vp, bt, lens)]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    before = paged_attention.launches
+    out, m, l = paged_attention(*args, page_size=ps, window=window,
+                                return_partials=True)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    wo, wm, wl = tref.paged_attention(*args, page_size=ps, window=window,
+                                      return_partials=True)
+    tol = F32 if dtype == torch.float32 else BF16
+    torch.testing.assert_close(out.float(), wo.float(), **tol)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), wo.float(), **BF16_OUT)
+    torch.testing.assert_close(m, wm, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-4)
+    empty = args[4] == 0
+    assert (out[empty] == 0).all() and (l[empty] == 0).all()
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_reads_a_strided_layer_slice(cuda):
     """A layer of a (P, L, ps, Hkv, Dh) pool is a view whose page stride
@@ -264,6 +302,39 @@ def test_cuda_prefill_attention_paged_tensor_core_shapes(
     want = tref.prefill_attention_paged(q, kp, vp, pages, q_offset=q_offset,
                                         window=window)
     torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("h,hkv", _GROUPS,
+                         ids=[f"g{h // hkv}" for h, hkv in _GROUPS])
+def test_cuda_prefill_attention_paged_gqa_groups(cuda, h, hkv, window,
+                                                 dtype):
+    """The engine form at G 5, 6, 12 and 48 with head_dim 128: a 64-row
+    tile holds 64 // G positions x G heads (12 x 5, 10 x 6, 5 x 12, 1 x
+    48), so 4, 4, 4 and 16 of its rows are idle; a chunk of 100 queries at
+    offset 37, then a single query far into the context."""
+    dh, ps = 128, 16
+    rng = np.random.default_rng(h * 3 + hkv)
+    for s, q_offset in ((100, 37), (1, 300)):
+        n = -(-(q_offset + s) // ps)
+        npages = n + 4
+        kp, vp = (torch.from_numpy(rng.standard_normal(
+            (npages, ps, hkv, dh)).astype(np.float32)).to(cuda, dtype)
+            for _ in range(2))
+        pages = torch.from_numpy(rng.permutation(npages)[:n].astype(
+            np.int32)).to(cuda)
+        q = torch.from_numpy(rng.standard_normal((1, s, h, dh)).astype(
+            np.float32)).to(cuda, dtype)
+        before = flash_prefill.launches
+        got = prefill_attention_paged(q, kp, vp, pages, q_offset=q_offset,
+                                      window=window)
+        torch.cuda.synchronize()
+        assert flash_prefill.launches == before + 1
+        want = tref.prefill_attention_paged(q, kp, vp, pages,
+                                            q_offset=q_offset, window=window)
+        torch.testing.assert_close(got.float(), want.float(), **BF16)
 
 
 @pytest.mark.gpu
@@ -479,7 +550,9 @@ def test_cuda_ssd_scan_bf16_raises_on_what_it_does_not_take(cuda):
 @pytest.mark.gpu
 def test_cuda_paths_launch_the_kernels(cuda):
     """The engine's prefill chunks launch flash_prefill once per layer and
-    chunk; the SSM model's prefill launches ssd_scan once per layer."""
+    chunk, dense and MoE, and its decode steps paged_attention once per
+    layer and step; the SSM model's prefill launches ssd_scan once per
+    layer."""
     import dataclasses
 
     from repro_torch.bridge import init_params
@@ -500,6 +573,25 @@ def test_cuda_paths_launch_the_kernels(cuda):
     assert len(outs[0].token_ids) == 3 and engine.prefill_chunks >= 3
     assert flash_prefill.launches - before == \
         cfg.num_layers * engine.prefill_chunks
+
+    # MoE on GQA (llama4-scout at smoke size, 5 query heads per KV head):
+    # both attention kernels once per layer and call
+    cfg = dataclasses.replace(smoke_config("llama4-scout-17b-a16e"),
+                              num_heads=10, num_kv_heads=2)
+    params = init_params(cfg, seed=0, device=cuda)
+    engine = PagedEngine(cfg, params, EngineConfig(
+        num_pages=64, page_size=16, max_slots=4, max_tokens_per_iter=48),
+        device=cuda)
+    before = (flash_prefill.launches, paged_attention.launches)
+    outs = LLMService(engine).generate(
+        [list(range(1, 100)), list(range(7, 30))],
+        SamplingParams(max_new_tokens=4))
+    assert all(len(o.token_ids) == 4 for o in outs)
+    assert all(0 <= t < cfg.vocab_size for o in outs for t in o.token_ids)
+    assert flash_prefill.launches - before[0] == \
+        cfg.num_layers * engine.prefill_chunks
+    assert paged_attention.launches - before[1] == \
+        cfg.num_layers * engine.decode_steps > 0
 
     cfg = smoke_config("mamba2-1.3b")
     params = init_params(cfg, seed=0, device=cuda)
