@@ -3,6 +3,8 @@
     python3 benchmarks/torch_decode_profile.py
     python3 benchmarks/torch_decode_profile.py \
         --arch llama4-scout-17b-a16e --layers 12
+    python3 benchmarks/torch_decode_profile.py \
+        --arch deepseek-v2-236b --layers 8
 
 Needs one CUDA card. Serves the traffic of ``chip_smoke.py``'s serve phase
 (full-width h2o-danube-1.8b in bf16 by default, or ``--arch`` at full
@@ -16,8 +18,15 @@ of its decode-only and prefill-carrying iterations (from the engine's
 telemetry), the device time by CUDA kernel from the profiled run, and the
 device's idle share: 1 - (kernel time of the profiled run) / (wall time of
 the unprofiled run); the traffic is the same, so both runs launch the same
-kernels, and the profiler's own host cost stays out of the wall time.
-Then one JSON line with the same numbers.
+kernels, and the profiler's own host cost stays out of the wall time. In
+the profiled run the engine's model functions are named spans
+(``SPANS``): each span's device time is that of the kernels its ops
+launched, and within ``moe_forward`` the ``aten::bmm`` ops' (the expert
+products) are read apart, so that the expert products and the attention
+(the kernels, or MLA's plain latent attention: ``blockwise_attention`` in
+a prefill chunk, ``attention_partial`` + ``merge_partials_tree`` in a
+decode step) have their own rows. Then one JSON line with the same
+numbers.
 """
 
 from __future__ import annotations
@@ -38,6 +47,60 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import SERVE_ENGINE, serve_requests  # noqa: E402
+
+
+# the engine's model functions read apart in the profiled run
+SPANS = ("moe_forward", "prefill_attention_paged", "paged_attention",
+         "blockwise_attention", "attention_partial", "merge_partials_tree")
+
+
+def name_spans():
+    """Wrap each of SPANS in the engine module in a profiler range."""
+    from torch.profiler import record_function
+    from repro_torch.serving import engine as engine_mod
+    for name in SPANS:
+        def spanned(*args, _fn=getattr(engine_mod, name), _name=name,
+                    **kwargs):
+            with record_function(f"span::{_name}"):
+                return _fn(*args, **kwargs)
+        setattr(engine_mod, name, spanned)
+
+
+def _device_us(ev):
+    """Device microseconds of the kernels an op and its children
+    launched."""
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(ev, name):
+            return getattr(ev, name)
+    return 0.0
+
+
+def _subtree(ev):
+    yield ev
+    for ch in ev.cpu_children:
+        yield from _subtree(ch)
+
+
+def span_times(prof):
+    """{span: (device ms, calls)} and the device ms of the ``aten::bmm``
+    ops inside ``moe_forward``, from the host-side range of each span (the
+    profiler also records each range on the device, as the time from its
+    first kernel's start to its last one's end, idle gaps included: those
+    are left out)."""
+    from torch.autograd import DeviceType
+    spans, bmm_us = {}, 0.0
+    for ev in prof.events():
+        if not ev.name.startswith("span::") or \
+                ev.device_type != DeviceType.CPU:
+            continue
+        name = ev.name[len("span::"):]
+        us, calls = spans.get(name, (0.0, 0))
+        spans[name] = (us + _device_us(ev), calls + 1)
+        if name == "moe_forward":
+            bmm_us += sum(_device_us(c) for c in _subtree(ev)
+                          if c.name == "aten::bmm")
+    return {k: dict(device_ms=us / 1e3, calls=c)
+            for k, (us, c) in spans.items()}, bmm_us / 1e3
 
 
 def serve(cfg, params, dev, seed):
@@ -78,6 +141,7 @@ def main(argv=None) -> int:
     params = init_params(cfg, seed=0, device=dev)
     serve(cfg, params, dev, seed=0)  # warm-up
     engine, wall = serve(cfg, params, dev, seed=0)
+    name_spans()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall_profiled = serve(cfg, params, dev, seed=0)
@@ -93,17 +157,19 @@ def main(argv=None) -> int:
         return 0.0
 
     # device-side kernel events only: an aten op's own entry repeats the
-    # device time of the kernels it launched
+    # device time of the kernels it launched, and a span's device-side
+    # range spans its kernels and the gaps between them
     kernels = [(ev.key, dev_time(ev), ev.count)
                for ev in prof.key_averages()
                if getattr(ev, "device_type", None) == DeviceType.CUDA
-               and dev_time(ev) > 0]
+               and dev_time(ev) > 0 and not ev.key.startswith("span::")]
     kernels.sort(key=lambda k: -k[1])
     busy_us = sum(t for _, t, _ in kernels)
     host = sorted(((ev.key, ev.self_cpu_time_total, ev.count)
                    for ev in prof.key_averages()
                    if getattr(ev, "device_type", None) == DeviceType.CPU),
                   key=lambda k: -k[1])[:10]
+    spans, expert_bmm_ms = span_times(prof)
     out = dict(
         card=card, arch=cfg.arch_id, layers=cfg.num_layers, wall_s=wall,
         wall_profiled_s=wall_profiled,
@@ -116,6 +182,8 @@ def main(argv=None) -> int:
         if with_prefill else None,
         device_busy_s=busy_us / 1e6,
         kernel_launches=sum(c for _, _, c in kernels),
+        launches_per_iteration=sum(c for _, _, c in kernels) / len(iters),
+        spans=spans, expert_bmm_device_ms=expert_bmm_ms,
         device_idle_share=1.0 - busy_us / 1e6 / wall if busy_us else None,
         top_kernels=[dict(name=k[:90], device_ms=t / 1e3, calls=c,
                           share=t / busy_us)
@@ -137,6 +205,11 @@ def main(argv=None) -> int:
         for k in out["top_kernels"]:
             print(f"  {k['device_ms']:10.3f} ms {k['share']:6.1%} "
                   f"{k['calls']:6d}x  {k['name']}")
+        print("device time by span of the engine's model functions:")
+        for name, sp in spans.items():
+            print(f"  {sp['device_ms']:10.3f} ms {sp['calls']:6d}x  {name}")
+        print(f"  {expert_bmm_ms:10.3f} ms          expert products "
+              "(aten::bmm inside moe_forward)")
     print("host time by op under the profiler (self CPU):")
     for h in out["top_host_ops_profiled"]:
         print(f"  {h['self_cpu_ms']:10.3f} ms {h['calls']:6d}x  {h['name']}")

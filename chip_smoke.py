@@ -67,7 +67,17 @@ or the JAX package) and:
    tokens each; each one's float32 oracle at 2 layers. Every phase from
    the serve phase on prints its seconds and ``max_memory_allocated`` on
    a line of its own, and frees its model before the next;
-10. times each kernel at its path's shapes beside its plain version, one
+10. MLA phases: deepseek-v2-236b at full width (d 5120, 128 heads, latent
+   r 512 + rope 64, q_lora 1536, 160 experts of 1536 top-6 + 2 shared, a
+   dense first layer of 12288), cut to 8 of its 60 layers, bf16, served
+   as in the serve phase from latent pools (schema
+   ``mla:ckv512+krope64:bf16``); the MLA path is the reference's plain
+   one, so neither attention kernel may launch in it. Then its float32
+   oracle at 2 layers (the dense one and one MoE) with capacity factor 27
+   (every expert has a place for every token), by the MoE oracle's rule,
+   the witness's generated rows attending as the engine's MLA decode does
+   (absorbed, over the latent, float32);
+11. times each kernel at its path's shapes beside its plain version, one
    PyTorch library call computing the same function where there is one,
    and the least time the card could take (its bound), and prints them as
    one JSON line; ``flash_prefill``'s engine form is also timed at each of
@@ -171,6 +181,11 @@ DENSE_LAYERS = {"granite-20b": None, "command-r-35b": None,
 SHORT_PROMPTS, SHORT_NEW = [64, 333, 512, 900], 8
 SHORT_ENGINE = dict(num_pages=256, page_size=PS, max_slots=4,
                     max_tokens_per_iter=512)
+# MLA + MoE at full width cut in depth (bf16: 7.94 GB a MoE layer, 57.3 GB
+# at 8 layers), and its float32 oracle's capacity factor: 160/6 can round a
+# chunk's capacity to T - 1 places, 27 gives every expert T
+MLA_ARCH, MLA_LAYERS, MLA_ORACLE_FACTOR = "deepseek-v2-236b", 8, 27.0
+MLA_SCHEMA = "mla:ckv512+krope64:bf16"
 # the attention kernels also timed at these configs' widths (G 5, 48, 1),
 # pools of TIMING_LAYERS layers cycled
 GQA_TIMING = ("llama4-scout-17b-a16e", "granite-20b", "paper-opt-13b")
@@ -552,9 +567,11 @@ def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw):
     """Serve ``requests`` ((prompt, SamplingParams) pairs) through
     LLMService on a PagedEngine of ``engine_kw``, with ``cfg``'s weights
     drawn from ``seed`` on the card. The launch counts are read around
-    this run alone: paged_attention must equal layers x the engine's
-    decode steps and flash_prefill layers x its prefill chunks. Every
-    logit the engine returns must be finite, every token in the vocab."""
+    this run alone: on a GQA engine paged_attention must equal layers x
+    the engine's decode steps and flash_prefill layers x its prefill
+    chunks; on an MLA engine (the reference's plain latent path) both
+    must be 0. Every logit the engine returns must be finite, every token
+    in the vocab."""
     from repro_torch.bridge import init_params
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.paged_attention import paged_attention
@@ -572,6 +589,12 @@ def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw):
         f"{time.monotonic() - t_phase:.1f}s")
     engine = PagedEngine(cfg, params, EngineConfig(**engine_kw, seed=seed),
                          device=dev)
+    schema = engine.kv_layout.schema
+    log(f"{label}: {engine.flavor} engine, pool schema {schema}, "
+        f"{(engine.k_pages.nbytes + engine.v_pages.nbytes) / 2 ** 20:.1f} "
+        "MiB of pages")
+    # launches of each attention kernel per layer and engine call
+    per_layer = cfg.num_layers if engine.flavor == "gqa" else 0
     # a running flag on the card: no sync in the loop
     finite = torch.ones((), dtype=torch.bool, device=dev)
 
@@ -616,19 +639,20 @@ def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw):
         ttfts.append(out.metrics.ttft)
     assert bool(finite), f"{label}: a logit was not finite"
     assert decode_steps > 0
-    assert launches == cfg.num_layers * decode_steps, \
+    assert launches == per_layer * decode_steps, \
         f"paged_attention launched {launches} times over {decode_steps} " \
-        f"decode steps of {cfg.num_layers} layers"
+        f"decode steps of {cfg.num_layers} {engine.flavor} layers"
     assert chunks > 0
-    assert prefill_launches == cfg.num_layers * chunks, \
+    assert prefill_launches == per_layer * chunks, \
         f"flash_prefill launched {prefill_launches} times over {chunks} " \
-        f"prefill chunks of {cfg.num_layers} layers"
+        f"prefill chunks of {cfg.num_layers} {engine.flavor} layers"
     log(f"{label}: {len(outs)} requests ({n_tokens} tokens) in "
         f"{engine.iterations} iterations, {decode_steps} decode steps, "
         f"{chunks} prefill chunks; paged_attention launches {launches} = "
-        f"{cfg.num_layers} x {decode_steps}; flash_prefill launches "
-        f"{prefill_launches} = {cfg.num_layers} x {chunks}")
+        f"{per_layer} x {decode_steps}; flash_prefill launches "
+        f"{prefill_launches} = {per_layer} x {chunks}")
     stats = dict(arch=cfg.arch_id, layers=cfg.num_layers, params=n_params,
+                 schema=schema,
                  requests=len(outs), tokens=n_tokens, wall_s=wall,
                  tokens_per_s=n_tokens / wall,
                  ttft_mean_s=sum(ttfts) / len(ttfts), ttft_max_s=max(ttfts),
@@ -698,19 +722,48 @@ def f32_attention(q, k, v, q_offset: int, window):
     return torch.einsum("bhst,bthd->bshd", probs, v).to(q.dtype)
 
 
+def mla_decode_layer(cfg, p, x, positions, decode_from: int, mlp_fn):
+    """An MLA layer as ``Model.forward`` runs it (``mla_forward``, the
+    decompressed form), except that the rows at positions >= decode_from
+    attend as the engine's MLA decode does: absorbed (``mla_attention``),
+    over the latent of every position up to theirs, in one float32
+    ``attention_partial`` and its merge."""
+    from repro_torch.core.distkv.dist_attention import (attention_partial,
+                                                        merge_partials_tree)
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import mlp, rms_norm
+
+    def attend_latent(q_lat, qr, ckv, krope):
+        q_eff, k_eff, v_eff = attn.mla_effective_kv(q_lat, qr, ckv, krope)
+        causal = (positions[None, :] <= positions[:, None])[None]
+        o, m, l = attention_partial(q_eff, k_eff, v_eff, causal,
+                                    scale=attn._mla_scale(cfg))
+        ctx = merge_partials_tree([o], [m], [l])
+        return ctx[..., :cfg.kv_lora_rank].to(q_lat.dtype)
+
+    hn = rms_norm(p["ln1"], x, cfg.norm_eps)
+    out = attn.mla_forward(cfg, p["attn"], hn, positions)
+    out[:, decode_from:] = attn.mla_attention(
+        cfg, p["attn"], hn, positions, attend_latent)[:, decode_from:]
+    x = x + out
+    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    return x + (mlp(p["mlp"], h2) if mlp_fn is None else mlp_fn(p["mlp"], h2))
+
+
 @torch.no_grad()
 def oracle_forward(model, params, tokens, decode_from=None):
     """Model.forward over ``tokens`` (1, S), layer by layer as it runs, with
     each MoE layer's float32 router logits (S, E), computed from the
     layer's input as ``moe_forward`` computes them. With ``decode_from``,
     the query rows at positions >= decode_from attend as the engine's
-    decode kernel does (``f32_attention``); the rows before them, as
-    Model.forward and the engine's prefill kernel do. Returns (logits,
-    router logits per MoE layer)."""
+    decode does: a GQA layer's as its kernel does (``f32_attention``), an
+    MLA layer's as its plain latent decode does (``mla_decode_layer``);
+    the rows before them, as Model.forward does. Returns (logits, router
+    logits per MoE layer)."""
     from repro_torch.models import attention as attn
     from repro_torch.models.layers import embed
     from repro_torch.models.moe import moe_forward
-    from repro_torch.models.transformer import seg_window
+    from repro_torch.models.transformer import mla_forward_layer, seg_window
     cfg = model.cfg
     x = embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -722,6 +775,13 @@ def oracle_forward(model, params, tokens, decode_from=None):
         return moe_forward(cfg, pm, h, return_aux=True)[0]
 
     for seg, _, p in model.layers(params):
+        mlp_fn = moe_fn if seg.mlp_kind == "moe" else None
+        if seg.mixer == "mla":
+            x = mla_forward_layer(cfg, p, x, positions, mlp_fn) \
+                if decode_from is None else \
+                mla_decode_layer(cfg, p, x, positions, decode_from, mlp_fn)
+            continue
+
         def attend(q, k, v, window=seg_window(cfg, seg)):
             out = attn.blockwise_attention(q, k, v, causal=True,
                                            window=window)
@@ -729,8 +789,7 @@ def oracle_forward(model, params, tokens, decode_from=None):
                 out[:, decode_from:] = f32_attention(
                     q[:, decode_from:], k, v, decode_from, window)
             return out
-        x = attn.gqa_layer(cfg, p, x, positions, attend,
-                           moe_fn if seg.mlp_kind == "moe" else None)
+        x = attn.gqa_layer(cfg, p, x, positions, attend, mlp_fn)
     return model._logits(params, x), routers
 
 
@@ -755,7 +814,9 @@ def oracle_check(label: str, cfg, params, prompts, token_lists, dev):
 
     A MoE layer's routing is a discrete choice, and the bf16 rounding of
     the oracle's attention probabilities, which the engine's decode does
-    not make, moves router logits by ~2**-9 of their size. So for a MoE
+    not make, moves router logits by ~2**-9 of their size (an MLA engine
+    also attends in the absorbed form, over the latent, where the oracle
+    decompresses: other roundings again). So for a MoE
     config the oracle runs a second time with the engine's decode
     numerics at the generated positions (``oracle_forward`` with
     ``decode_from``; the first run must equal Model.forward bit for bit).
@@ -979,6 +1040,26 @@ def moe_phases(dev, seed: int):
     oracle = oracle_model("MoE oracle", dataclasses.replace(
         full, num_layers=ORACLE_LAYERS,
         capacity_factor=full.num_experts / full.moe_top_k), dev, seed + 1)
+    return dict(serve=serve, oracle=oracle)
+
+
+def mla_phases(dev, seed: int):
+    """deepseek-v2-236b at full width: served in bf16 at MLA_LAYERS of its
+    60 layers under the serve traffic from latent pools (MLA_SCHEMA), with
+    neither attention kernel launched, then its float32 oracle at
+    ORACLE_LAYERS layers (the dense layer and one MoE layer) at capacity
+    factor MLA_ORACLE_FACTOR, so that no token is dropped and the chunked
+    engine and the monolithic oracle route alike."""
+    from repro_torch.configs import get_config
+    full = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MLA_LAYERS)
+    serve = serve_model("MLA serve phase", cfg, dev, seed,
+                        serve_requests(cfg.vocab_size, seed), SERVE_ENGINE)
+    assert serve["schema"] == MLA_SCHEMA, serve["schema"]
+    assert serve["launches"] == serve["prefill_launches"] == 0
+    oracle = oracle_model("MLA oracle", dataclasses.replace(
+        full, num_layers=ORACLE_LAYERS, capacity_factor=MLA_ORACLE_FACTOR),
+        dev, seed + 1)
     return dict(serve=serve, oracle=oracle)
 
 
@@ -1570,12 +1651,14 @@ def main() -> int:
     mamba = mamba_phase(dev, seed=3)
     moe = moe_phases(dev, seed=9)
     dense = dense_phases(dev, seed=10)
+    mla = mla_phases(dev, seed=11)
     paged, paged_shapes = timing_phase(dev, seed=2,
                                        launches=serve["launches"])
     flash, flash_shapes = flash_timing(dev, seed=5,
                                        launches=serve["prefill_launches"])
     ssd, ssd_shapes = ssd_timing(dev, seed=6, launches=mamba["launches"])
-    served = dict(dense["serve"], **{MOE_ARCH: moe["serve"]})
+    served = dict(dense["serve"], **{MOE_ARCH: moe["serve"],
+                                     MLA_ARCH: mla["serve"]})
     gqa_timed = {}
     for arch in GQA_TIMING:
         run = served[arch]
@@ -1596,7 +1679,8 @@ def main() -> int:
             f"{run['ttft_max_s'] * 1e3:.1f} ms, {run['decode_steps']} decode "
             f"steps, {run['prefill_chunks']} prefill chunks, launches "
             f"paged_attention {run['launches']}, flash_prefill "
-            f"{run['prefill_launches']}")
+            f"{run['prefill_launches']}, pool {run['schema']}, "
+            f"max_memory_allocated {run['peak_gib']:.2f} GiB")
     log(f"mamba2 phase on {card}: prefill {mamba['prefill_ms']:.1f} ms "
         f"for {MAMBA_BATCH} x {MAMBA_PROMPT} tokens, decode "
         f"{mamba['decode_tokens_per_s']:.1f} tokens/s")
@@ -1607,7 +1691,7 @@ def main() -> int:
                     timed)
     log("detail " + json.dumps(dict(
         card=card, serve=serve, oracle=oracle, slice1=slice1, mamba=mamba,
-        moe=moe, dense=dense, kernel_cases=cases,
+        moe=moe, dense=dense, mla=mla, kernel_cases=cases,
         timing=dict(paged_attention=paged_shapes,
                     flash_prefill=flash_shapes, ssd_scan=ssd_shapes,
                     gqa={arch: dict(paged_attention=dict(t[0][0], **t[0][1]),

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import gqa_init
+from repro_torch.models.attention import gqa_init, mla_init
 from repro_torch.models.layers import embed_init, mlp_init, norm_init
 from repro_torch.models.moe import moe_init
 from repro_torch.models.ssm import ssm_init
@@ -65,7 +65,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     """The reference's parameter tree for ``cfg``, drawn on ``device`` from
     a ``torch.Generator`` seeded with ``seed``: dense weights normal *
     1/sqrt(d_in), the embedding normal * 0.02 over the 512-padded vocab,
-    norm scales one; a MoE layer's float32 router normal * 1/sqrt(d), its
+    norm scales one (an MLA layer's latent projections and norms too); a MoE layer's float32 router normal * 1/sqrt(d), its
     experts' up and gate normal * 1/sqrt(d) and down normal * 1/sqrt(ff);
     an SSM layer's conv weights normal * 0.2, A_log =
     log(1..H), D one, dt_bias and the conv bias zero. Same shapes and
@@ -82,6 +82,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
         p = {"ln1": norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias)}
         if seg.mixer == "gqa":
             p["attn"] = gqa_init(cfg, gen, dt, dev, lead=lead)
+        if seg.mixer == "mla":
+            p["attn"] = mla_init(cfg, gen, dt, dev, lead=lead)
         if seg.mixer == "ssm":
             p["ssm"] = ssm_init(cfg, gen, dt, dev, lead=lead)
         if seg.mlp_kind == "dense":

@@ -6,8 +6,8 @@ a ``torch.dtype`` instead. ``get_config`` resolves dashed ids
 (``--arch h2o-danube-1.8b``) to a module of this package; ``smoke_config``
 returns the reduced variant the CPU tests use (2 layers, d_model 256),
 built exactly as the reference builds it. Only the archs the port runs so
-far have a module here: the GQA decoders (dense, and MoE on GQA) and
-mamba2.
+far have a module here: the GQA decoders (dense, and MoE on GQA),
+deepseek-v2 (MLA + MoE) and mamba2.
 """
 
 from __future__ import annotations
@@ -124,6 +124,7 @@ ARCH_IDS = [
     "command-r-35b",
     "mistral-large-123b",
     "llama4-scout-17b-a16e",
+    "deepseek-v2-236b",
 ]
 
 

@@ -1,12 +1,21 @@
-"""GQA attention (MHA / MQA / sliding window), one for one with the GQA
-part of ``repro.models.attention``.
+"""Attention variants, one for one with ``repro.models.attention``: GQA
+(MHA / MQA / sliding window) and MLA (DeepSeek-V2's multi-head latent
+attention).
 
 ``blockwise_attention`` is the prefill and full-sequence path. It rounds
 q, k, v and the softmax probabilities to bfloat16 and accumulates in
 float32, even under a float32 config (``attention.py:119-120,159-161`` of
 the reference): float32 token identity with the reference depends on it.
-Decode attention over the paged cache stays in float32
+GQA decode attention over the paged cache stays in float32
 (``repro_torch.kernels.paged_attention``).
+
+MLA caches only the shared latent per token: ``ckv`` (``kv_lora_rank``,
+normed) and ``krope`` (``qk_rope_head_dim``, roped). ``mla_forward``
+decompresses it to per-head K/V and runs standard attention (the
+teacher-forced path); ``mla_layer`` attends over the latent directly, with
+W_UK folded into the queries and W_UV into the output (matrix absorption):
+the engine's paged prefill and decode. Neither reaches a kernel, in the
+reference or here: the reference computes them in XLA.
 """
 
 from __future__ import annotations
@@ -17,7 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.layers import apply_rope, dense, dense_init, mlp, \
-    rms_norm
+    norm_init, pad_last, rms_norm
 
 # queries per block of the score matrix: bounds live memory at
 # (B, Q_BLOCK, H, Skv) float32 without changing any query's result
@@ -33,6 +42,31 @@ def gqa_init(cfg, gen, dtype, device, *, lead=()):
         "wv": dense_init(gen, d, hkv * dh, dtype, device, **kw),
         "wo": dense_init(gen, h * dh, d, dtype, device, **kw),
     }
+
+
+def mla_init(cfg, gen, dtype, device, *, lead=()):
+    """``mla_init`` of the reference (``attention.py:68-86``): the latent
+    down-projection ``wkv_a`` (d, r + dr), its norm, the up-projection
+    ``wkv_b`` (r, H (dn + dv)), ``wo``, and the query path, low-rank
+    (``wq_a`` / ``q_norm`` / ``wq_b``) where ``q_lora_rank`` is set, else
+    one ``wq``."""
+    d, h = cfg.d_model, cfg.num_heads
+    r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    p = {
+        "wkv_a": dense_init(gen, d, r + dr, dtype, device, lead=lead),
+        "kv_norm": norm_init(r, dtype, device, lead=lead),
+        "wkv_b": dense_init(gen, r, h * (dn + dv), dtype, device, lead=lead),
+        "wo": dense_init(gen, h * dv, d, dtype, device, lead=lead),
+    }
+    if qr:
+        p["wq_a"] = dense_init(gen, d, qr, dtype, device, lead=lead)
+        p["q_norm"] = norm_init(qr, dtype, device, lead=lead)
+        p["wq_b"] = dense_init(gen, qr, h * (dn + dr), dtype, device,
+                               lead=lead)
+    else:
+        p["wq"] = dense_init(gen, d, h * (dn + dr), dtype, device, lead=lead)
+    return p
 
 
 def _bf16(x):
@@ -120,3 +154,123 @@ def gqa_forward(cfg, p, x, positions, *, window=None,
     if return_kv:
         return y, (k, v)
     return y
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def _mla_q(cfg, p, x):
+    """Queries (B, S, H, dn) without rope and (B, S, H, dr) to rope."""
+    b, s, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if "wq_a" in p:
+        q = dense(p["wq_b"], rms_norm(p["q_norm"], dense(p["wq_a"], x),
+                                      cfg.norm_eps))
+    else:
+        q = dense(p["wq"], x)
+    q = q.reshape(b, s, cfg.num_heads, dn + dr)
+    return q[..., :dn], q[..., dn:]
+
+
+def _mla_scale(cfg):
+    """The conceptual head dim's scale, ``1/sqrt(dn + dr)``: the absorbed
+    form scores in the lifted width r + dr but must scale as the
+    decompressed one does."""
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def _mla_latent(cfg, p, x, positions):
+    """This sequence's latent payload: ``ckv`` (B, S, r) normed and
+    ``krope`` (B, S, dr) roped, exactly what the pools store."""
+    r = cfg.kv_lora_rank
+    kv = dense(p["wkv_a"], x)
+    ckv = rms_norm(p["kv_norm"], kv[..., :r], cfg.norm_eps)
+    krope = apply_rope(kv[..., r:], positions, cfg.rope_theta, heads=False)
+    return ckv, krope
+
+
+def mla_forward(cfg, p, x, positions):
+    """Full-sequence causal MLA block (no norm, no residual): decompress the
+    latent to per-head K/V and run standard attention, scaled by the
+    concatenated head dim dn + dr."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_head_dim,
+                     cfg.qk_rope_head_dim, cfg.v_head_dim)
+    qn, qr = _mla_q(cfg, p, x)
+    qr = apply_rope(qr, positions, cfg.rope_theta)
+    ckv, krope = _mla_latent(cfg, p, x, positions)
+    kvb = dense(p["wkv_b"], ckv).reshape(b, s, h, dn + dv)
+    kn, v = kvb[..., :dn], kvb[..., dn:]
+    q = torch.cat([qn, qr], dim=-1)
+    k = torch.cat([kn, krope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    out = blockwise_attention(q, k, v, causal=True)
+    return dense(p["wo"], out.reshape(b, s, h * dv))
+
+
+def mla_absorb(cfg, p):
+    """``wkv_b`` split into the absorbed matrices ``(w_uk, w_uv)``, shapes
+    (r, H, dn) and (r, H, dv): W_UK folds into the queries, W_UV into the
+    output projection."""
+    r, h = cfg.kv_lora_rank, cfg.num_heads
+    dn = cfg.qk_nope_head_dim
+    wkv_b = p["wkv_b"]["w"].reshape(r, h, -1)
+    return wkv_b[..., :dn], wkv_b[..., dn:]
+
+
+def mla_effective_ctx(ckv, krope):
+    """The latent context as one effective KV head: keys ``concat(ckv,
+    krope)``, values ``ckv`` zero-padded to the key width (the context's
+    pad columns stay zero; slice it back to ``[..., :r]``).
+
+    ckv: (B, T, r); krope: (B, T, dr) -> k_eff, v_eff: (B, T, 1, r + dr).
+    """
+    k_eff = torch.cat([ckv, krope], dim=-1)[:, :, None, :]
+    v_eff = pad_last(ckv, k_eff.shape[-1])[:, :, None, :]
+    return k_eff, v_eff
+
+
+def mla_effective_kv(q_lat, qr, ckv, krope):
+    """Absorbed MLA as single-KV-head attention: queries ``concat(q_lat,
+    qr)`` (scores decompose as q_lat . ckv + qr . krope), K/V from
+    :func:`mla_effective_ctx`. Callers scale by ``_mla_scale(cfg)``.
+
+    q_lat: (B, S, H, r); qr: (B, S, H, dr); ckv: (B, T, r); krope: (B, T,
+    dr).
+    """
+    q_eff = torch.cat([q_lat, qr], dim=-1)
+    k_eff, v_eff = mla_effective_ctx(ckv, krope)
+    return q_eff, k_eff, v_eff
+
+
+def mla_attention(cfg, p, hn, positions, attend_latent):
+    """The absorbed MLA block of :func:`mla_layer` on normed input ``hn``
+    (no residual): output (B, S, D)."""
+    b, s, _ = hn.shape
+    h, dv = cfg.num_heads, cfg.v_head_dim
+    qn, qr = _mla_q(cfg, p, hn)
+    qr = apply_rope(qr, positions, cfg.rope_theta)
+    ckv_new, krope_new = _mla_latent(cfg, p, hn, positions)
+    w_uk, w_uv = mla_absorb(cfg, p)
+    q_lat = torch.einsum("bshd,rhd->bshr", _bf16(qn),
+                         _bf16(w_uk)).to(hn.dtype)
+    ctx_lat = attend_latent(q_lat, qr, ckv_new, krope_new)
+    out = torch.einsum("bshr,rhd->bshd", _bf16(ctx_lat), _bf16(w_uv))
+    return dense(p["wo"], out.reshape(b, s, h * dv).to(hn.dtype))
+
+
+def mla_layer(cfg, p, x, positions, attend_latent, mlp_fn=None):
+    """One full MLA transformer layer over the latent, the sibling of
+    :func:`gqa_layer`: the engine's paged prefill and decode.
+
+    ``attend_latent(q_lat, qr, ckv_new, krope_new) -> ctx_lat`` receives
+    the absorbed queries (B, S, H, r), the roped rope-queries (B, S, H,
+    dr) and this call's latent payloads ``ckv_new`` (B, S, r) / ``krope_new``
+    (B, S, dr), and returns the latent context (B, S, H, r). The products
+    with W_UK and W_UV take bfloat16 operands and accumulate in float32, as
+    the reference's do.
+    """
+    hn = rms_norm(p["ln1"], x, cfg.norm_eps)
+    y = x + mla_attention(cfg, p["attn"], hn, positions, attend_latent)
+    h2 = rms_norm(p["ln2"], y, cfg.norm_eps)
+    return y + (mlp(p["mlp"], h2) if mlp_fn is None else mlp_fn(p["mlp"], h2))

@@ -1,18 +1,21 @@
 """Decoder stack (``repro.models.transformer``) for the plans ported so
 far: dense GQA, global or sliding window (danube: ``[24 x swa-dense]``),
-MoE on GQA (llama4-scout: ``[48 x gqa-moe]``, after ``first_k_dense``
-dense layers where a config has them), and the attention-free SSM plan
-(mamba2: ``[48 x ssm]``).
+MoE on GQA (llama4-scout: ``[48 x gqa-moe]``), MLA + MoE (deepseek-v2:
+``[1 x mla-dense, 59 x mla-moe]``; a MoE plan starts with its
+``first_k_dense`` dense layers), and the attention-free SSM plan (mamba2:
+``[48 x ssm]``).
 
 A model is a sequence of **segments**: runs of identical layers whose
 parameters are stacked along a leading layer axis, exactly as the
 reference stores them (``transformer.py:319``). The reference scans over
 that axis; here a Python loop indexes it. ``Model.forward`` is the
-teacher-forced oracle of the engine tests and of ``chip_smoke.py``.
+teacher-forced oracle of the engine tests and of ``chip_smoke.py``; an MLA
+layer there decompresses the latent and runs standard attention
+(``mla_forward``), where the engine attends over the latent.
 ``Model.prefill`` / ``Model.decode_step`` serve the SSM plan, whose decode
-cache is a constant-size state (the paged engine serves GQA); a segment's
-cache is an :class:`SSMCache` whose tensors carry the segment's stacked
-layer axis, as the reference's scan stacks them.
+cache is a constant-size state (the paged engine serves GQA and MLA); a
+segment's cache is an :class:`SSMCache` whose tensors carry the segment's
+stacked layer axis, as the reference's scan stacks them.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import embed, rms_norm, unembed
+from repro_torch.models.layers import embed, mlp, rms_norm, unembed
 from repro_torch.models.moe import moe_forward
 
 
@@ -39,28 +42,29 @@ class Segment:
 
 
 def stack_plan(cfg: ArchConfig) -> List[Segment]:
-    """The reference's plan (``transformer.py:51``) for a GQA decoder,
-    dense or MoE, or an SSM decoder; the other families come with their
-    slices of the port."""
+    """The reference's plan (``transformer.py:51``) for a GQA or MLA
+    decoder, dense or MoE, or an SSM decoder; the other families come with
+    their slices of the port."""
     if cfg.family == "ssm":
         if cfg.d_ff:
             raise NotImplementedError(
                 f"{cfg.arch_id}: an SSM plan with an MLP is not ported yet")
         return [Segment(cfg.num_layers, "ssm", "none", "none")]
-    if cfg.is_hybrid or cfg.is_encdec or cfg.attention != "gqa":
+    if cfg.is_hybrid or cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.arch_id}: only the GQA (dense or MoE) and SSM plans are "
-            "ported so far")
+            f"{cfg.arch_id}: only the GQA and MLA (dense or MoE) and SSM "
+            "plans are ported so far")
+    mixer = "mla" if cfg.attention == "mla" else "gqa"
     attn_kind = "swa" if cfg.sliding_window else "global"
     if cfg.is_moe:
         segs = []
         if cfg.first_k_dense:
-            segs.append(Segment(cfg.first_k_dense, "gqa", "dense",
+            segs.append(Segment(cfg.first_k_dense, mixer, "dense",
                                 attn_kind))
-        segs.append(Segment(cfg.num_layers - cfg.first_k_dense, "gqa", "moe",
+        segs.append(Segment(cfg.num_layers - cfg.first_k_dense, mixer, "moe",
                             attn_kind))
         return segs
-    return [Segment(cfg.num_layers, "gqa", "dense", attn_kind)]
+    return [Segment(cfg.num_layers, mixer, "dense", attn_kind)]
 
 
 def layer_params(p_seg, i: int):
@@ -83,6 +87,16 @@ def ssm_layer(cfg, p, x, *, return_cache: bool = False):
         out, cache = out
         return x + out, cache
     return x + out
+
+
+def mla_forward_layer(cfg, p, x, positions, mlp_fn=None):
+    """One full-sequence MLA layer: pre-norm residual ``mla_forward`` (the
+    decompressed form), then the pre-norm residual MLP, as the reference's
+    ``_layer_forward`` runs it (``transformer.py:139-141, 169-176``)."""
+    x = x + attn.mla_forward(cfg, p["attn"],
+                             rms_norm(p["ln1"], x, cfg.norm_eps), positions)
+    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    return x + (mlp(p["mlp"], h2) if mlp_fn is None else mlp_fn(p["mlp"], h2))
 
 
 def _stack_caches(caches):
@@ -129,17 +143,17 @@ class Model:
             return out
 
         for seg, _, p in self.layers(params):
+            mlp_fn = moe_fn if seg.mlp_kind == "moe" else None
             if seg.mixer == "ssm":
                 x = ssm_layer(cfg, p, x)
-                continue
-            window = seg_window(cfg, seg)
+            elif seg.mixer == "mla":
+                x = mla_forward_layer(cfg, p, x, positions, mlp_fn)
+            else:
+                def attend(q, k, v, window=seg_window(cfg, seg)):
+                    return attn.blockwise_attention(q, k, v, causal=True,
+                                                    window=window)
 
-            def attend(q, k, v, window=window):
-                return attn.blockwise_attention(q, k, v, causal=True,
-                                                window=window)
-
-            x = attn.gqa_layer(cfg, p, x, positions, attend,
-                               moe_fn if seg.mlp_kind == "moe" else None)
+                x = attn.gqa_layer(cfg, p, x, positions, attend, mlp_fn)
         return self._logits(params, x), aux[0]
 
     def _require_ssm(self, what: str):

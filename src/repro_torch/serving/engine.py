@@ -1,6 +1,6 @@
 """Paged serving engine on a real PyTorch model: ORCA iteration-level
 scheduling, vLLM paging, and the prefill- and decode-attention CUDA
-kernels. GQA flavour of ``repro.serving.engine``.
+kernels. The GQA and MLA flavours of ``repro.serving.engine``.
 
 Per iteration (continuous batching):
 
@@ -25,6 +25,18 @@ Per iteration (continuous batching):
    launches the CUDA kernel for CUDA tensors and runs its plain version for
    CPU tensors, and sampling is fused over the slots with per-slot
    parameters.
+
+**MLA** (deepseek-v2): the two pools hold the shared latent instead of
+per-head K/V, ``ckv`` (L, P+1, ps, r) in ``k_pages`` and ``krope`` (L, P+1,
+ps, dr) in ``v_pages`` (``KVPageLayout``'s ``mla`` schema), and both the
+chunk and the decode attend over it in the matrix-absorbed form
+(``mla_layer``) as single-KV-head attention: the chunk with
+``blockwise_attention`` over the gathered context pages, the decode with
+one float32 ``attention_partial`` over the gathered block tables and its
+merge. That is the reference's path (``repro/serving/engine.py:368-411,
+481-501``): it refuses the decode kernel for MLA and runs both in XLA, so
+no kernel of the port is launched for MLA either. Everything page-granular
+(COW, forks, the prefix cache, preemption) is the same for both flavours.
 
 Unlike the reference, which copies its immutable pools on every write, the
 KV pools here are updated **in place** (``index_put_``): the decode and
@@ -51,6 +63,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.core.distkv.dist_attention import (attention_partial,
+                                                    merge_partials_tree)
 from repro_torch.core.paging.allocator import BlockAllocator
 from repro_torch.core.paging.layout import KVPageLayout
 from repro_torch.core.prefixcache.radix import PrefixCache
@@ -61,7 +75,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_prefill import prefill_attention_paged
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import sampling
-from repro_torch.models.attention import gqa_layer
+from repro_torch.models.attention import (_mla_scale, blockwise_attention,
+                                          gqa_layer, mla_effective_kv,
+                                          mla_layer)
 from repro_torch.models.layers import embed, rms_norm, unembed
 from repro_torch.models.moe import moe_forward
 from repro_torch.models.transformer import Model, seg_window
@@ -110,14 +126,20 @@ class PagedEngine:
         self.ecfg = ecfg
         self.params = params
         self.model = Model(cfg)
-        self.kv_layout = KVPageLayout.from_arch(cfg)
-        if self.kv_layout.flavor != "gqa" or cfg.attention != "gqa":
+        if {seg.mixer for seg in self.model.plan} not in ({"gqa"}, {"mla"}):
             raise ValueError(f"{cfg.arch_id}: this engine serves GQA stacks "
-                             "only (an SSM model runs Model.prefill and "
-                             "Model.decode_step)")
+                             "only, or MLA stacks only (an SSM model runs "
+                             "Model.prefill and Model.decode_step)")
+        # GQA pools hold per-head (k, v); MLA pools the shared latent
+        # (ckv, krope)
+        self.kv_layout = KVPageLayout.from_arch(cfg)
+        self.flavor = self.kv_layout.flavor
+        if self.flavor == "mla" and cfg.sliding_window:
+            raise ValueError("MLA + sliding window is unsupported")
         P, ps = ecfg.num_pages, ecfg.page_size
         # +1 trash page (index P): inactive decode slots park their writes
-        # there; no real context ever reads it
+        # there; no real context ever reads it. The pools keep the names
+        # k_pages / v_pages for both flavours (MLA: ckv / krope)
         shape_a, shape_b = self.kv_layout.pool_shapes(P + 1, ps)
         self.k_pages = torch.zeros(shape_a, dtype=cfg.torch_dtype,
                                    device=self.device)
@@ -162,6 +184,32 @@ class PagedEngine:
                                              capacity_tokens=capacity_tokens)
         return None
 
+    def _layer(self, seg, li, p, x, positions, slot_pages, in_page,
+               attention, mlp_fn):
+        """Layer ``li`` through the flavour's shared layer body
+        (``gqa_layer`` / ``mla_layer``). Its attend callable writes this
+        call's pool payloads, the last two arguments the body hands it (k /
+        v, or ckv / krope), into their (page, offset) slots in place, then
+        returns ``attention(seg, *queries, pool_a, pool_b)``."""
+        kp, vp = self.k_pages[li], self.v_pages[li]
+
+        def attend(*args):
+            *queries, a, b = args
+            kp[slot_pages, in_page] = a.flatten(0, 1).to(kp.dtype)
+            vp[slot_pages, in_page] = b.flatten(0, 1).to(vp.dtype)
+            return attention(seg, *queries, kp, vp)
+
+        body = mla_layer if self.flavor == "mla" else gqa_layer
+        return body(self.cfg, p, x, positions, attend, mlp_fn)
+
+    @staticmethod
+    def _latent(cp, rp, idx, dtype):
+        """The latent context of each row of pages ``idx`` (n, w) from the
+        ckv / krope pools: (n, w * ps, r) and (n, w * ps, dr)."""
+        n = idx.shape[0]
+        return (cp[idx].reshape(n, -1, cp.shape[-1]).to(dtype),
+                rp[idx].reshape(n, -1, rp.shape[-1]).to(dtype))
+
     @torch.no_grad()
     def _prefill_chunk(self, tokens, page_ids, start: int):
         """One prefill chunk at absolute positions ``[start, start + S)``.
@@ -169,11 +217,14 @@ class PagedEngine:
         tokens: (S,) chunk token ids; page_ids: the physical pages covering
         context positions ``[0, start + S)`` in order (cached prefix pages,
         pages of earlier chunks and the pages this chunk lands in). Each
-        chunk token's K/V is written to its (page, offset) slot, then the
-        chunk's queries attend causally over every context page: keys past
-        a query's position are masked, so stale slot contents past the
-        chunk's end are never read. Returns the logits (V,) of the
-        chunk's last position.
+        chunk token's K/V (MLA: its latent) is written to its (page, offset)
+        slot, then the chunk's queries attend causally over every context
+        page: keys past a query's position are masked, so stale slot
+        contents past the chunk's end are never read. GQA attends through
+        ``prefill_attention_paged``; MLA through ``blockwise_attention`` on
+        the gathered latent pages in the absorbed single-KV-head form,
+        scaled by ``_mla_scale``. Returns the logits (V,) of the chunk's
+        last position.
 
         A MoE layer's capacity is that of the reference's padded chunk,
         ``_pow2_bucket(S)`` tokens (``repro/serving/engine.py:876`` pads
@@ -189,19 +240,26 @@ class PagedEngine:
         positions = start + torch.arange(s, device=dev)
         tok_pages = pages.long()[positions // ps]
         in_page = positions % ps
+
+        def attention(seg, *args):
+            if self.flavor == "gqa":
+                q, kp, vp = args
+                return prefill_attention_paged(q, kp, vp, pages,
+                                               q_offset=start,
+                                               window=seg_window(cfg, seg))
+            q_lat, qr, cp, rp = args
+            q_eff, k_eff, v_eff = mla_effective_kv(
+                q_lat, qr, *self._latent(cp, rp, pages.long()[None],
+                                         q_lat.dtype))
+            ctx = blockwise_attention(q_eff, k_eff, v_eff, causal=True,
+                                      q_offset=start, scale=_mla_scale(cfg))
+            return ctx[..., :cfg.kv_lora_rank]
+
         x = embed(self.params["embed"], toks[None])  # (1, s, d)
         s_pad = _pow2_bucket(s)
         for seg, li, p in self.model.layers(self.params):
-            kp, vp = self.k_pages[li], self.v_pages[li]
-
-            def attend(q, k, v, kp=kp, vp=vp, window=seg_window(cfg, seg)):
-                kp[tok_pages, in_page] = k[0].to(kp.dtype)
-                vp[tok_pages, in_page] = v[0].to(vp.dtype)
-                return prefill_attention_paged(q, kp, vp, pages,
-                                               q_offset=start, window=window)
-
-            x = gqa_layer(cfg, p, x, positions, attend,
-                          self._mlp_fn(seg, s_pad))
+            x = self._layer(seg, li, p, x, positions, tok_pages, in_page,
+                            attention, self._mlp_fn(seg, s_pad))
         x = rms_norm(self.params["final_norm"], x[:, -1:], cfg.norm_eps)
         logits = unembed(self.params["embed"], x, cfg.vocab_size,
                          fp32=cfg.logits_fp32)
@@ -213,11 +271,15 @@ class PagedEngine:
         """Batched one-token step over all slots.
 
         tokens, positions, ctx_lens: (n,) with ctx_len 0 for an inactive
-        slot; block_tables: (n, width). Each slot's new K/V is written into
-        its page (inactive slots write to the trash page), then paged
-        attention runs over the block tables. Returns logits (n, V). Every
-        row goes through a MoE layer's routing, inactive ones too, as in
-        the reference: they take places in the experts' capacity.
+        slot; block_tables: (n, width). Each slot's new K/V (MLA: latent) is
+        written into its page (inactive slots write to the trash page),
+        then attention runs over the block tables: GQA through
+        ``paged_attention``; MLA through one float32 ``attention_partial``
+        over the gathered latent pages, masked to each slot's context, and
+        its merge, which gives an inactive slot zeros. Returns logits (n,
+        V). Every row goes through a MoE layer's routing, inactive ones
+        too, as in the reference: they take places in the experts'
+        capacity.
         """
         cfg, ecfg, dev = self.cfg, self.ecfg, self.device
         n, ps = len(tokens), ecfg.page_size
@@ -229,18 +291,28 @@ class PagedEngine:
         page_slot = torch.where(lens > 0, page_slot,
                                 torch.full_like(page_slot, ecfg.num_pages))
         in_page = pos % ps
+
+        def attention(seg, *args):
+            if self.flavor == "gqa":
+                q, kp, vp = args
+                att = paged_attention(q[:, 0], kp, vp, bt, lens,
+                                      page_size=ps,
+                                      window=seg_window(cfg, seg))
+                return att.reshape(n, 1, cfg.num_heads, cfg.head_dim)
+            q_lat, qr, cp, rp = args
+            q_eff, k_eff, v_eff = mla_effective_kv(
+                q_lat, qr, *self._latent(cp, rp, bt.long(), q_lat.dtype))
+            keys = torch.arange(k_eff.shape[1], device=dev)
+            mask = (keys[None, :] < lens[:, None])[:, None, :]  # (n, 1, S)
+            o, m, l = attention_partial(q_eff, k_eff, v_eff, mask,
+                                        scale=_mla_scale(cfg))
+            ctx = merge_partials_tree([o], [m], [l])
+            return ctx[..., :cfg.kv_lora_rank].to(q_lat.dtype)
+
         x = embed(self.params["embed"], toks[:, None])  # (n, 1, d)
         for seg, li, p in self.model.layers(self.params):
-            kp, vp = self.k_pages[li], self.v_pages[li]
-
-            def attend(q, k, v, kp=kp, vp=vp, window=seg_window(cfg, seg)):
-                kp[page_slot, in_page] = k[:, 0].to(kp.dtype)
-                vp[page_slot, in_page] = v[:, 0].to(vp.dtype)
-                att = paged_attention(q[:, 0], kp, vp, bt, lens,
-                                      page_size=ps, window=window)
-                return att.reshape(n, 1, cfg.num_heads, cfg.head_dim)
-
-            x = gqa_layer(cfg, p, x, pos[:, None], attend, self._mlp_fn(seg))
+            x = self._layer(seg, li, p, x, pos[:, None], page_slot, in_page,
+                            attention, self._mlp_fn(seg))
         x = rms_norm(self.params["final_norm"], x, cfg.norm_eps)
         logits = unembed(self.params["embed"], x, cfg.vocab_size,
                          fp32=cfg.logits_fp32)[:, 0]

@@ -601,3 +601,63 @@ def test_cuda_paths_launch_the_kernels(cuda):
     assert ssd_scan.launches - before == cfg.num_layers
     assert torch.isfinite(logits[:, :cfg.vocab_size].float()).all()
     assert caches[0].state.shape == (2, 2, cfg.ssm_heads, 32, 16)
+
+
+@pytest.mark.gpu
+def test_cuda_mla_engine_matches_cpu_engine(cuda):
+    """deepseek-v2-236b at smoke size, float32, on the MLA engine: the
+    card's greedy tokens equal the CPU engine's, through chunked prefill,
+    a late join and a best-of-2 fork. The two devices' float32 sums differ
+    in order, which can flip a bf16 rounding inside the attention (2**-8
+    relative): a token may differ only where ``Model.forward``'s top-2
+    logits lie within 2**-7 of the largest |logit|, and comparing that
+    request stops there. The MLA path is the reference's plain one: it
+    launches neither attention kernel."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.api import LLMService, SamplingParams
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+
+    cfg = dataclasses.replace(smoke_config("deepseek-v2-236b"),
+                              dtype="float32", logits_fp32=True)
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (45, 9, 30)]
+    runs = {}
+    before = (flash_prefill.launches, paged_attention.launches)
+    for dev in ("cpu", cuda):
+        engine = PagedEngine(cfg, _to(params, dev), EngineConfig(
+            num_pages=64, page_size=8, max_slots=4, max_tokens_per_iter=16),
+            device=dev)
+        svc = LLMService(engine)
+        outs = svc.generate(prompts[:2], SamplingParams(max_new_tokens=8,
+                                                        n=2))
+        outs += svc.generate(prompts[2:], SamplingParams(max_new_tokens=8))
+        runs[str(dev)] = [s.token_ids for o in outs for s in o.samples]
+        assert engine.kv_layout.schema == "mla:ckv64+krope16:f32"
+    assert (flash_prefill.launches, paged_attention.launches) == before
+    model = Model(cfg)
+    compared = 0
+    for prompt, a, b in zip([prompts[0]] * 2 + [prompts[1]] * 2 +
+                            [prompts[2]], runs["cpu"], runs[str(cuda)]):
+        for i, (x, y) in enumerate(zip(a, b)):
+            compared += 1
+            if x == y:
+                continue
+            logits, _ = model.forward(params, torch.tensor([prompt + a[:i]]))
+            last = logits[0, -1, :cfg.vocab_size]
+            top = torch.topk(last, 2).values
+            assert top[0] - top[1] < 2.0 ** -7 * last.abs().max(), (i, x, y)
+            break
+    assert compared >= 20
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
