@@ -24,7 +24,12 @@ or the JAX package) and:
    a chain of 16 chunks) and at hymba-1.5b's widths (P 50, N 16), float32
    and bfloat16 x. Both attention kernels also at the GQA groups of the
    configs served below that lie outside {1, 2, 4, 8}: G 5, 6, 12 and 48
-   at head_dim 128, float32 and bfloat16, window none and 24. Tolerances:
+   at head_dim 128, float32 and bfloat16, window none and 24.
+   ``paged_attention``'s (m, l) as the zero-copy decode uses them, at
+   danube's widths and at G 1 (OPT), 5 and 48, float32 and bfloat16: a
+   local and a leased context in two pools (several splits, rows with
+   context 0 in either), each partial's out, m and l against the plain
+   version, and their merge against the plain version over both. Tolerances:
    float32 2e-5 and bfloat16 3e-2 (``tests/test_kernels.py``); 3e-2 for the
    engine form of flash_prefill in both types (it rounds its probabilities
    to bfloat16, so a one-ulp score difference can flip a rounding); 2e-4
@@ -67,6 +72,24 @@ or the JAX package) and:
    tokens each; each one's float32 oracle at 2 layers. Every phase from
    the serve phase on prints its seconds and ``max_memory_allocated`` on
    a line of its own, and frees its model before the next;
+   cluster phase, on the OPT serve phase's weights (initialised once, and
+   shared by every instance): two full-width 40-layer bf16 engines of 512
+   pages of 16 behind ``RouterBackend``, greedy, 32 new tokens a request,
+   in four modes. Zero-copy share (round robin, ``prefix_share``,
+   ``share_mode="zero_copy"``, ``hot_threshold=1``): a warm request of a
+   512-token prefix + 32 tokens, then 8 requests of the prefix + 32-256
+   distinct tokens at t = 0; the 4 on instance 1 lease the prefix's 32
+   pages from instance 0 and read them in place (decode partials through
+   ``paged_attention(..., return_partials=True)``), copying no payload.
+   Copy share: the same traffic, the pages adopted as payloads.
+   Disaggregated prefill/decode (``roles=["prefill", "decode"]``),
+   ``handoff_mode`` "migrate" and "zero_copy": the serve phase's 8
+   prompts. Each mode prints its tokens/s, TTFT, leases, handoffs, the
+   debt ledger (empty at the end), the kernels' launches (with partials)
+   and ``max_memory_allocated``; the launch counts must equal layers x
+   the engines' decode steps, remote partials and unleased chunks. Then
+   the float32 gate: the four modes at full width and 2 layers, whose
+   tokens must equal a single float32 engine's but at a near-tie;
 10. MLA phases: deepseek-v2-236b at full width (d 5120, 128 heads, latent
    r 512 + rope 64, q_lora 1536, 160 experts of 1536 top-6 + 2 shared, a
    dense first layer of 12288), cut to 8 of its 60 layers, bf16, served
@@ -190,6 +213,28 @@ MLA_SCHEMA = "mla:ckv512+krope64:bf16"
 # pools of TIMING_LAYERS layers cycled
 GQA_TIMING = ("llama4-scout-17b-a16e", "granite-20b", "paper-opt-13b")
 TIMING_LAYERS = 8
+# the zero-copy decode's partials: (H, Hkv, Dh) of danube (G 4), OPT (G 1),
+# llama4-scout (G 5) and granite (G 48)
+PARTIAL_WIDTHS = [(H, HKV, DH), (40, 40, 128), (40, 8, 128), (48, 1, 128)]
+# cluster serving on paper-opt-13b (no window, so it may borrow): two
+# engines of CLUSTER_ENGINE on one set of weights. The sharing modes serve
+# a warm request (the prefix + CLUSTER_WARM tokens), then 8 requests of the
+# prefix + a distinct suffix; the handoff modes the serve phase's prompts
+CLUSTER_ARCH = "paper-opt-13b"
+CLUSTER_ENGINE = dict(num_pages=512, page_size=PS, max_slots=8,
+                      enable_prefix_cache=True)
+CLUSTER_PREFIX, CLUSTER_WARM, CLUSTER_NEW = 512, 32, 32
+CLUSTER_SUFFIXES = [32, 64, 96, 128, 160, 192, 224, 256]
+CLUSTER_MODES = {
+    "zero-copy share": dict(policy="round_robin", prefix_share=True,
+                            share_mode="zero_copy", hot_threshold=1),
+    "copy share": dict(policy="round_robin", prefix_share=True,
+                       share_mode="copy", hot_threshold=1),
+    "migrate handoff": dict(roles=["prefill", "decode"],
+                            handoff_mode="migrate"),
+    "zero-copy handoff": dict(roles=["prefill", "decode"],
+                              handoff_mode="zero_copy"),
+}
 
 
 def log(msg: str) -> None:
@@ -463,6 +508,73 @@ def gqa_group_phase(dev):
     return cases
 
 
+def partials_phase(dev):
+    """paged_attention's (m, l) as the zero-copy decode uses them, at
+    PARTIAL_WIDTHS, float32 and bfloat16: a local context in one pool and a
+    leased one (whole pages) in another, contexts over several splits, rows
+    with either, both or neither (context 0). Each partial's out, m and l
+    against the plain version; then the two merged by
+    ``merge_partials_tree`` (o = out * l) against the plain version over
+    both contexts in one pool, with TOL."""
+    from repro_torch.core.distkv.dist_attention import merge_partials_tree
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (SPLIT_TOKENS,
+                                                     paged_attention)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    loc = [37, 0, SPLIT_TOKENS + 5, 0, 2 * SPLIT_TOKENS + 9, 16]
+    rem = [0, 3 * PS, 2 * SPLIT_TOKENS, 0, SPLIT_TOKENS, 32 * PS]
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for widths in PARTIAL_WIDTHS:
+            h, hkv, dh = widths
+            q, kl, vl, lbt, lctx = paged_inputs(gen, dev, dtype, loc,
+                                                widths=widths)
+            _, kr, vr, rbt, rctx = paged_inputs(gen, dev, dtype, rem,
+                                                widths=widths)
+            kl, vl, kr, vr = kl[0], vl[0], kr[0], vr[0]
+            parts, errs = [], {}
+            for side, k, v, bt, ctx in (("local", kl, vl, lbt, lctx),
+                                        ("leased", kr, vr, rbt, rctx)):
+                out, m, l = paged_attention(q, k, v, bt, ctx, page_size=PS,
+                                            return_partials=True)
+                torch.cuda.synchronize()
+                wo, wm, wl = ref.paged_attention(q, k, v, bt, ctx,
+                                                 page_size=PS,
+                                                 return_partials=True)
+                torch.testing.assert_close(out.float(), wo.float(),
+                                           **TOL[dtype])
+                torch.testing.assert_close(m, wm, rtol=2e-5, atol=2e-5)
+                torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-4)
+                assert (out[ctx == 0] == 0).all() and (l[ctx == 0] == 0).all()
+                errs[side] = dict(
+                    out=(out.float() - wo.float()).abs().max().item(),
+                    m=(m - wm).abs().max().item(),
+                    l=((l - wl).abs() / wl.clamp_min(1e-30)).max().item())
+                parts.append((out.float() * l[..., None], m, l))
+            merged = merge_partials_tree(*zip(*parts))
+            # both instances' pages in one pool: leased first, then local
+            npr = kr.shape[0]
+            pool_k, pool_v = torch.cat([kr, kl]), torch.cat([vr, vl])
+            union = torch.zeros((len(loc), rbt.shape[1] + lbt.shape[1]),
+                                dtype=torch.int32, device=dev)
+            for i, (r, n_loc) in enumerate(zip(rem, loc)):
+                nr, nl = r // PS, -(-n_loc // PS)
+                union[i, :nr] = rbt[i, :nr]
+                union[i, nr:nr + nl] = lbt[i, :nl] + npr
+            want = ref.paged_attention(q.float(), pool_k.float(),
+                                       pool_v.float(), union, lctx + rctx,
+                                       page_size=PS)
+            torch.testing.assert_close(merged, want, **TOL[dtype])
+            case = dict(g=h // hkv, heads=h, kv_heads=hkv, head_dim=dh,
+                        dtype=str(dtype)[6:], local=loc, leased=rem,
+                        partial_errs=errs,
+                        merged_max_abs_err=(merged - want).abs().max().item())
+            cases.append(case)
+            log(f"kernel phase: paged_attention partials {case} ok")
+    return cases
+
+
 def ssd_inputs(gen, dev, dtype, b, l, h, p, g, n):
     """x, dt (softplus of a normal), A (-exp of a normal / 2), B, C."""
     def rand(*shape):
@@ -563,15 +675,44 @@ def serve_phase(dev, seed: int):
                        serve_requests(cfg.vocab_size, seed), SERVE_ENGINE)
 
 
-def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw):
+def watch_finite(engines, vocab: int, dev):
+    """Wrap each engine's chunk and decode so that every logit they return
+    is checked finite, into a running flag on the card (no sync in the
+    loop). Returns the flag; ``del engine._prefill_chunk, engine._decode``
+    takes the watches off (they hold the engine)."""
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def watch(fn):
+        def watched(*args, **kw):
+            logits = fn(*args, **kw)
+            finite.logical_and_(torch.isfinite(logits[..., :vocab]).all())
+            return logits
+        return watched
+
+    for engine in engines:
+        engine._prefill_chunk = watch(engine._prefill_chunk)
+        engine._decode = watch(engine._decode)
+    return finite
+
+
+def unwatch(engines) -> None:
+    """Take ``watch_finite``'s wrappers off again. (A loop over the engines
+    in the caller's frame would keep the last one, and through the router's
+    reference cycles every engine of the run, alive into the next run.)"""
+    for engine in engines:
+        del engine._prefill_chunk, engine._decode
+
+
+def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw,
+                params=None):
     """Serve ``requests`` ((prompt, SamplingParams) pairs) through
     LLMService on a PagedEngine of ``engine_kw``, with ``cfg``'s weights
-    drawn from ``seed`` on the card. The launch counts are read around
-    this run alone: on a GQA engine paged_attention must equal layers x
-    the engine's decode steps and flash_prefill layers x its prefill
-    chunks; on an MLA engine (the reference's plain latent path) both
-    must be 0. Every logit the engine returns must be finite, every token
-    in the vocab."""
+    drawn from ``seed`` on the card (or ``params``, already there). The
+    launch counts are read around this run alone: on a GQA engine
+    paged_attention must equal layers x the engine's decode steps and
+    flash_prefill layers x its prefill chunks; on an MLA engine (the
+    reference's plain latent path) both must be 0. Every logit the engine
+    returns must be finite, every token in the vocab."""
     from repro_torch.bridge import init_params
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.paged_attention import paged_attention
@@ -580,7 +721,8 @@ def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw):
 
     t_phase = time.monotonic()
     torch.cuda.reset_peak_memory_stats()
-    params = init_params(cfg, seed=seed, device=dev)
+    if params is None:
+        params = init_params(cfg, seed=seed, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"{label}: {cfg.arch_id} {cfg.num_layers}L d{cfg.d_model} "
@@ -595,19 +737,7 @@ def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw):
         "MiB of pages")
     # launches of each attention kernel per layer and engine call
     per_layer = cfg.num_layers if engine.flavor == "gqa" else 0
-    # a running flag on the card: no sync in the loop
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-
-    def watch(fn):
-        def watched(*args):
-            logits = fn(*args)
-            finite.logical_and_(
-                torch.isfinite(logits[..., :cfg.vocab_size]).all())
-            return logits
-        return watched
-
-    engine._prefill_chunk = watch(engine._prefill_chunk)
-    engine._decode = watch(engine._decode)
+    finite = watch_finite([engine], cfg.vocab_size, dev)
     svc = LLMService(engine)
     ids = [(svc.submit(prompt, sp), sp) for prompt, sp in requests]
 
@@ -623,7 +753,7 @@ def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw):
     prefill_launches = flash_prefill.launches
     decode_steps = engine.decode_steps - decode0
     chunks = engine.prefill_chunks - chunks0
-    del engine._prefill_chunk, engine._decode  # the watches hold the engine
+    unwatch([engine])  # the watches hold the engine
 
     outs = [svc._take_result(rid) for rid, _ in ids]
     n_tokens = 0
@@ -1067,12 +1197,22 @@ def dense_phases(dev, seed: int):
     """paper-opt-13b whole under the serve traffic; granite-20b,
     command-r-35b and mistral-large-123b at DENSE_LAYERS under
     SHORT_PROMPTS; then each one's float32 oracle at ORACLE_LAYERS."""
+    from repro_torch.bridge import init_params
     from repro_torch.configs import get_config
     serves, oracles = {}, {}
-    cfg = get_config("paper-opt-13b")
+    cfg = get_config(CLUSTER_ARCH)
+    # one set of weights for the serve phase and the cluster phase
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    log(f"OPT weights on the card in {time.monotonic() - t0:.1f}s, for the "
+        "serve and the cluster phase")
     serves[cfg.arch_id] = serve_model(
         "OPT serve phase", cfg, dev, seed,
-        serve_requests(cfg.vocab_size, seed), SERVE_ENGINE)
+        serve_requests(cfg.vocab_size, seed), SERVE_ENGINE, params=params)
+    cluster = cluster_phase(cfg, params, dev, seed)
+    del params
+    cluster["gate"] = cluster_gate(dev, seed + 1)
     for arch, layers in DENSE_LAYERS.items():
         cfg = get_config(arch)
         cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
@@ -1082,7 +1222,264 @@ def dense_phases(dev, seed: int):
     for arch in ["paper-opt-13b", *DENSE_LAYERS]:
         oracles[arch] = oracle_model(f"{arch} oracle", dataclasses.replace(
             get_config(arch), num_layers=ORACLE_LAYERS), dev, seed + 1)
-    return dict(serve=serves, oracle=oracles)
+    return dict(serve=serves, oracle=oracles, cluster=cluster)
+
+
+# -- cluster serving on paper-opt-13b ----------------------------------------------
+
+def cluster_traffic(vocab_size: int, seed: int):
+    """The sharing modes' warm prompt and 8 prompts (CLUSTER_PREFIX shared
+    tokens + CLUSTER_SUFFIXES distinct ones), and the handoff modes' 8
+    prompts of SERVE_PROMPTS tokens, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab_size, CLUSTER_PREFIX).tolist()
+    warm = prefix + rng.integers(0, vocab_size, CLUSTER_WARM).tolist()
+    shared = [prefix + rng.integers(0, vocab_size, n).tolist()
+              for n in CLUSTER_SUFFIXES]
+    handoff = [rng.integers(0, vocab_size, n).tolist()
+               for n in SERVE_PROMPTS]
+    return warm, shared, handoff
+
+
+def cluster_run(label: str, cfg, params, dev, mode_kw, warm, prompts,
+                new: int):
+    """One cluster mode: RouterBackend(**mode_kw) over two PagedEngines of
+    CLUSTER_ENGINE built on ``params`` (shared, not copied). ``warm`` (or
+    None) runs to completion first; then ``prompts`` arrive together, with
+    ``new`` greedy tokens each, through a fresh LLMService (TTFT from its
+    first poll). The launch counts are zeroed before the warm request and
+    read after the last: paged_attention must equal layers x (decode steps
+    + remote partials), its calls with partials layers x (decode steps
+    that merged leases + remote partials), flash_prefill layers x the
+    chunks that held no lease, summed over both engines. Every logit must
+    be finite, every token in the vocab, every lease repaid. Returns the
+    tokens and the run's numbers."""
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.serving.api import LLMService, SamplingParams
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+    from repro_torch.serving.router import RouterBackend
+
+    t_mode = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    engines = [PagedEngine(cfg, params, EngineConfig(**CLUSTER_ENGINE),
+                           device=dev) for _ in range(2)]
+    assert engines[0].params is engines[1].params is params
+    finite = watch_finite(engines, cfg.vocab_size, dev)
+    router = RouterBackend(engines, **mode_kw)
+    sp = SamplingParams(max_new_tokens=new)
+    paged_attention.launches = paged_attention.partial_launches = 0
+    flash_prefill.launches = 0
+    if warm is not None:
+        (out,) = LLMService(router).generate([warm], sp)
+        assert len(out.token_ids) == new
+    svc = LLMService(router)
+    ids = [svc.submit(prompt, sp) for prompt in prompts]
+    delivered = {}  # request id -> wall s until its first token came back
+    t0 = time.monotonic()
+    while svc.pending:
+        for chunk in svc.poll():
+            delivered.setdefault(chunk.request_id, time.monotonic() - t0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = paged_attention.launches
+    partial_launches = paged_attention.partial_launches
+    prefill_launches = flash_prefill.launches
+    unwatch(engines)
+
+    outs = [svc._take_result(rid) for rid in ids]
+    for out in outs:
+        (s,) = out.samples
+        assert len(s.token_ids) == new and s.finish_reason == "length", \
+            (label, s)
+        assert all(0 <= t < cfg.vocab_size for t in s.token_ids)
+    assert bool(finite), f"{label}: a logit was not finite"
+    assert not router.g.ledger, f"{label}: leases outstanding {router.g.ledger}"
+    total = {k: sum(getattr(e, k) for e in engines)
+             for k in ("decode_steps", "prefill_chunks", "leased_chunks",
+                       "leased_decode_steps", "remote_partials")}
+    L = cfg.num_layers
+    assert launches == L * (total["decode_steps"] + total["remote_partials"])
+    assert partial_launches == L * (total["leased_decode_steps"]
+                                    + total["remote_partials"])
+    assert prefill_launches == L * (total["prefill_chunks"]
+                                    - total["leased_chunks"])
+    # TTFT as the serve phase reads it (the engine stamps a token with the
+    # start of the iteration that made it), and the wall time until the
+    # poll that made it returned
+    ttfts = [o.metrics.ttft for o in outs]
+    firsts = [delivered[rid] for rid in ids]
+    n_tokens = sum(len(o.token_ids) for o in outs)
+    stats = dict(
+        mode=label, requests=len(outs), tokens=n_tokens, wall_s=wall,
+        tokens_per_s=n_tokens / wall, ttft_mean_s=sum(ttfts) / len(ttfts),
+        ttft_max_s=max(ttfts), first_token_mean_s=sum(firsts) / len(firsts),
+        first_token_max_s=max(firsts), iterations=router.iterations,
+        launches=launches, partial_launches=partial_launches,
+        prefill_launches=prefill_launches,
+        leases_granted=router.leases_granted,
+        pages_borrowed=router.pages_borrowed,
+        adopted_pages=[e.prefix_cache.adopted_pages for e in engines],
+        cached_tokens=[o.metrics.num_cached_tokens for o in outs],
+        instances=[o.metrics.instance_id for o in outs],
+        net_time_s=sum(e.net_time for e in engines),
+        ledger=[(e.creditor, e.debtor, e.blocks) for e in router.g.ledger],
+        **total)
+    if router.handoff is not None:
+        stats.update({k: getattr(router.handoff, k) for k in (
+            "handoffs_migrated", "handoffs_leased", "pages_copied",
+            "pages_leased", "deferrals", "fallbacks")})
+    tokens = [o.token_ids for o in outs]
+    del engines, router, svc, outs
+    stats.update(phase_end(f"cluster phase, {label}", t_mode))
+    return tokens, stats
+
+
+def check_cluster_mode(label: str, st: dict, handoff) -> None:
+    """What each mode must have done, beyond ``cluster_run``'s checks."""
+    ps = CLUSTER_ENGINE["page_size"]
+    if label.endswith("share"):
+        borrowers = [i for i, inst in enumerate(st["instances"]) if inst == 1]
+        assert borrowers and all(st["cached_tokens"][i] == CLUSTER_PREFIX
+                                 for i in borrowers), st
+    if label == "zero-copy share":
+        assert st["leases_granted"] == len(borrowers), st
+        assert st["pages_borrowed"] >= (CLUSTER_PREFIX // ps) * \
+            st["leases_granted"], st
+        assert st["adopted_pages"][1] == 0, "zero-copy copied a payload"
+        assert st["partial_launches"] > 0 and st["leased_chunks"] > 0
+    if label == "copy share":
+        assert st["adopted_pages"][1] > 0 and st["leases_granted"] == 0
+        assert st["partial_launches"] == 0
+    if label == "migrate handoff":
+        assert st["handoffs_migrated"] == len(handoff), st
+        assert st["handoffs_leased"] == 0 and st["pages_copied"] > 0
+    if label == "zero-copy handoff":
+        assert st["handoffs_leased"] == len(handoff), st
+        assert st["pages_leased"] == sum(len(p) // ps for p in handoff), st
+        assert st["partial_launches"] > 0
+    if label.endswith("handoff"):
+        assert st["instances"] == [1] * len(handoff), st
+
+
+def cluster_phase(cfg, params, dev, seed: int):
+    """Cluster serving on full-width paper-opt-13b (40 layers, bf16), on
+    the weights of the OPT serve phase: the four CLUSTER_MODES in turn,
+    each over two engines of CLUSTER_ENGINE, greedy, CLUSTER_NEW new
+    tokens a request. Zero-copy share: a warm request, then 8 requests of
+    the shared prefix + a distinct suffix arrive at t = 0; round robin
+    puts 4 on each instance, and those on instance 1 borrow the prefix's
+    32 pages from instance 0 in place (decode partials through
+    paged_attention). Copy share: the same traffic, the pages adopted as
+    payloads. The handoff modes: the serve phase's 8 prompts, prefilled on
+    instance 0 and decoded on instance 1."""
+    t0 = time.monotonic()
+    warm, shared, handoff = cluster_traffic(cfg.vocab_size, seed)
+    modes = {}
+    for label, kw in CLUSTER_MODES.items():
+        share = label.endswith("share")
+        _, st = cluster_run(label, cfg, params, dev, kw,
+                            warm if share else None,
+                            shared if share else handoff, CLUSTER_NEW)
+        check_cluster_mode(label, st, handoff)
+        modes[label] = st
+        log(f"cluster phase, {label}: {st['tokens']} tokens in "
+            f"{st['wall_s']:.2f}s ({st['tokens_per_s']:.1f} tokens/s), mean "
+            f"TTFT {st['ttft_mean_s'] * 1e3:.1f} ms, max "
+            f"{st['ttft_max_s'] * 1e3:.1f} ms, first token back mean "
+            f"{st['first_token_mean_s'] * 1e3:.1f} ms, max "
+            f"{st['first_token_max_s'] * 1e3:.1f} ms; leases "
+            f"{st['leases_granted']}"
+            f", pages borrowed {st['pages_borrowed']}, adopted pages "
+            f"{st['adopted_pages']}, ledger {st['ledger']}; paged_attention "
+            f"launches {st['launches']} ({st['partial_launches']} with "
+            f"partials), flash_prefill {st['prefill_launches']}; "
+            + ", ".join(f"{k} {st[k]}" for k in (
+                "handoffs_migrated", "handoffs_leased", "pages_copied",
+                "pages_leased") if k in st))
+    return dict(arch=cfg.arch_id, layers=cfg.num_layers, modes=modes,
+                launches=sum(m["launches"] for m in modes.values()),
+                prefill_launches=sum(m["prefill_launches"]
+                                     for m in modes.values()),
+                seconds=time.monotonic() - t0)
+
+
+def cluster_gate(dev, seed: int):
+    """The four cluster modes in float32 (``logits_fp32``) on paper-opt-13b
+    at full width and ORACLE_LAYERS layers, against a single float32
+    engine that serves each prompt alone: a token may differ only where
+    Model.forward over the prompt and the single engine's tokens puts the
+    two on top within NEAR_TIE of the largest |logit| (a zero-copy run
+    merges two partials, a float32 sum in another order), and comparing
+    that request stops there. The single engine's tokens are held against
+    Model.forward first (``oracle_check``)."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.api import LLMService, SamplingParams
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+
+    t0 = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(CLUSTER_ARCH),
+                              num_layers=ORACLE_LAYERS, dtype="float32",
+                              logits_fp32=True)
+    params = init_params(cfg, seed=seed, device=dev)
+    warm, shared, handoff = cluster_traffic(cfg.vocab_size, seed)
+    engine = PagedEngine(cfg, params, EngineConfig(**dict(
+        CLUSTER_ENGINE, enable_prefix_cache=False)), device=dev)
+    single_svc = LLMService(engine)
+    sp = SamplingParams(max_new_tokens=ORACLE_NEW)
+    single = {tuple(p): single_svc.generate([p], sp)[0].token_ids
+              for p in shared + handoff}
+    del engine, single_svc
+    prompts = shared + handoff
+    oracle = oracle_check("cluster gate, single engine", cfg, params,
+                          prompts, [single[tuple(p)] for p in prompts], dev)
+    model = Model(cfg)
+    stats = dict(oracle=oracle, modes={})
+    for label, kw in CLUSTER_MODES.items():
+        share = label.endswith("share")
+        mode_prompts = shared if share else handoff
+        tokens, st = cluster_run(f"float32 {label}", cfg, params, dev, kw,
+                                 warm if share else None, mode_prompts,
+                                 ORACLE_NEW)
+        check_cluster_mode(label, st, handoff)
+        compared = stops = 0
+        for prompt, got in zip(mode_prompts, tokens):
+            want = single[tuple(prompt)]
+            for i, (x, y) in enumerate(zip(got, want)):
+                compared += 1
+                if x == y:
+                    continue
+                logits, _ = model.forward(params, torch.tensor(
+                    [prompt + want[:i]], device=dev))
+                last = logits[0, -1, :cfg.vocab_size].float()
+                top = torch.topk(last, 2)
+                gap = float(top.values[0] - top.values[1])
+                bound = NEAR_TIE * float(last.abs().max())
+                assert {x, y} == set(top.indices.tolist()) and gap < bound, \
+                    f"cluster gate, {label}: token {i} of a {len(prompt)}-" \
+                    f"token prompt: cluster {x}, single engine {y}, " \
+                    f"Model.forward's top-2 {top.indices.tolist()} gap {gap}"
+                stops += 1
+                log(f"cluster gate, {label}: near-tie at token {i} of a "
+                    f"{len(prompt)}-token prompt (gap {gap:.3g} < "
+                    f"{bound:.3g}); stop there")
+                break
+        total = len(mode_prompts) * ORACLE_NEW
+        assert compared >= total // 2, f"only {compared}/{total} compared"
+        stats["modes"][label] = dict(compared=compared, total=total,
+                                     near_tie_stops=stops,
+                                     leases_granted=st["leases_granted"],
+                                     pages_borrowed=st["pages_borrowed"],
+                                     partial_launches=st["partial_launches"])
+        log(f"cluster gate, {label}: {compared}/{total} float32 tokens equal "
+            f"to the single engine's, {stops} near-tie stops")
+    del params
+    stats.update(phase_end("cluster gate", t0))
+    return stats
 
 
 # -- mamba2 phase -----------------------------------------------------------------
@@ -1643,8 +2040,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    cases = kernel_phase(dev) + flash_phase(dev) + gqa_group_phase(dev) \
-        + ssd_phase(dev)
+    cases = kernel_phase(dev) + partials_phase(dev) + flash_phase(dev) \
+        + gqa_group_phase(dev) + ssd_phase(dev)
     serve = serve_phase(dev, seed=0)
     oracle = oracle_phase(dev, seed=1)
     slice1 = slice1_phase(dev, seed=8)
@@ -1652,10 +2049,12 @@ def main() -> int:
     moe = moe_phases(dev, seed=9)
     dense = dense_phases(dev, seed=10)
     mla = mla_phases(dev, seed=11)
-    paged, paged_shapes = timing_phase(dev, seed=2,
-                                       launches=serve["launches"])
-    flash, flash_shapes = flash_timing(dev, seed=5,
-                                       launches=serve["prefill_launches"])
+    cluster = dense["cluster"]
+    paged, paged_shapes = timing_phase(
+        dev, seed=2, launches=serve["launches"] + cluster["launches"])
+    flash, flash_shapes = flash_timing(
+        dev, seed=5,
+        launches=serve["prefill_launches"] + cluster["prefill_launches"])
     ssd, ssd_shapes = ssd_timing(dev, seed=6, launches=mamba["launches"])
     served = dict(dense["serve"], **{MOE_ARCH: moe["serve"],
                                      MLA_ARCH: mla["serve"]})
@@ -1681,6 +2080,23 @@ def main() -> int:
             f"paged_attention {run['launches']}, flash_prefill "
             f"{run['prefill_launches']}, pool {run['schema']}, "
             f"max_memory_allocated {run['peak_gib']:.2f} GiB")
+    for label, st in cluster["modes"].items():
+        log(f"cluster phase, {label} on {card}: {cluster['arch']} "
+            f"{cluster['layers']}L x 2 instances, {st['tokens_per_s']:.1f} "
+            f"tokens/s ({st['tokens']} tokens in {st['wall_s']:.2f}s), mean "
+            f"TTFT {st['ttft_mean_s'] * 1e3:.1f} ms, max TTFT "
+            f"{st['ttft_max_s'] * 1e3:.1f} ms, first token back mean "
+            f"{st['first_token_mean_s'] * 1e3:.1f} ms, max "
+            f"{st['first_token_max_s'] * 1e3:.1f} ms, {st['decode_steps']} "
+            f"decode steps ({st['leased_decode_steps']} with leases, "
+            f"{st['remote_partials']} remote partials), "
+            f"{st['prefill_chunks']} chunks ({st['leased_chunks']} leased), "
+            f"launches paged_attention {st['launches']} "
+            f"({st['partial_launches']} with partials), flash_prefill "
+            f"{st['prefill_launches']}, max_memory_allocated "
+            f"{st['peak_gib']:.2f} GiB")
+    log(f"cluster phase: {cluster['seconds']:.1f} s for the four modes; "
+        f"float32 gate {cluster['gate']['seconds']:.1f} s")
     log(f"mamba2 phase on {card}: prefill {mamba['prefill_ms']:.1f} ms "
         f"for {MAMBA_BATCH} x {MAMBA_PROMPT} tokens, decode "
         f"{mamba['decode_tokens_per_s']:.1f} tokens/s")

@@ -5,9 +5,11 @@ A partial is attention over a subset of the keys that keeps its softmax
 statistics apart: the un-normalised weighted values ``o``, the running
 maximum ``m`` and the sum of weights ``l``. Partials over disjoint key sets
 merge exactly into the attention over their union. The engine's MLA decode
-attends through one partial and the merge, as the reference's does; the
-mesh parts (``dist_attention``, the ``pmax`` / ``psum`` merge) come with the
-sharding slice of the port.
+attends through one partial and the merge, as the reference's does, and a
+request served from a zero-copy lease merges its local partial with the
+remote one read from the creditor's pages; the mesh parts
+(``dist_attention``, the ``pmax`` / ``psum`` merge) come with the sharding
+slice of the port.
 """
 
 from __future__ import annotations

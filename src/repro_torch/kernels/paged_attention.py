@@ -7,7 +7,9 @@ block each, and merges the runs' partials on the card; the wrapper
 allocates their scratch. It dispatches by the device of its tensors. CPU
 tensors take the plain version (``kernels.ref.paged_attention``); CUDA
 tensors launch the kernel or raise: there is no fallback from one to the
-other. Each call that launches adds one to ``paged_attention.launches``.
+other. Each call that launches adds one to ``paged_attention.launches``,
+and one that also returns the partials ``(m, l)`` (the zero-copy decode's
+calls) to ``paged_attention.partial_launches`` too.
 """
 
 from __future__ import annotations
@@ -147,9 +149,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
             raise RuntimeError(f"paged_attention kernel launch failed: "
                                f"error {err} ({msg})")
         paged_attention.launches += 1
+        paged_attention.partial_launches += return_partials
     if return_partials:
         return out, m, l
     return out
 
 
 paged_attention.launches = 0
+paged_attention.partial_launches = 0

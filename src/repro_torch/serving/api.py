@@ -16,11 +16,12 @@ modeled on vLLM's ``LLM`` / ``SamplingParams`` split:
   open-loop arrival traces (the Fig. 9/10 benchmarks).
 
 Backends implement the :class:`ServingBackend` protocol. In this package
-that is ``PagedEngine`` (wall-clock or caller-supplied time); the cost-model
-simulator and the cluster router that ``repro`` puts behind the same protocol
-come with later slices of the port. Reporting of per-request placement
-(``RequestMetrics.instance_id``) and per-instance aggregates
-(``ServiceStats.per_instance``) is kept for them.
+that is ``PagedEngine`` (wall-clock or caller-supplied time), and a whole
+cluster: ``repro_torch.serving.router.RouterBackend`` multiplexes N engines
+behind this protocol, reporting per-request placement via
+``RequestMetrics.instance_id`` and per-instance aggregates via
+``ServiceStats.per_instance``. The cost-model simulator that ``repro`` puts
+behind the same protocol comes with a later slice of the port.
 """
 
 from __future__ import annotations

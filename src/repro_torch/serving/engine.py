@@ -46,11 +46,44 @@ reference's power-of-two padding of chunk lengths and page lists (a jit
 shape bucket) is gone. Its one visible effect is kept: a MoE layer sizes
 its experts' capacity from the padded chunk length (:func:`_pow2_bucket`).
 
+**Cluster serving.** Several engines behind
+:class:`~repro_torch.serving.router.RouterBackend` share one ``params``
+dict on the card; none copies or changes it, and each has its own pools
+and trash page. Their cluster half is the reference's
+(``repro/serving/engine.py:236-244, 540-750, 1067-1132``):
+
+* a **zero-copy lease** (an admission-time prefix lease, or the lease of a
+  disaggregated handoff) serves a request's leading ``r_base`` tokens from
+  pages of a creditor engine, read in place through ``remote_reader(home)``
+  (the creditor's ``k_pages`` / ``v_pages``, wired by the router); the
+  request's local table covers ``[r_base, end)`` and its new K/V is
+  written at ``pos - r_base``, while RoPE keeps the absolute position.
+  Attention is a local partial and a remote partial merged by log-sum-exp
+  (``merge_partials_tree``). The decode's GQA partials are two
+  ``paged_attention(..., return_partials=True)`` calls, one over the local
+  table and one per creditor over the lease's pages in the creditor's
+  pool, with context 0 on rows holding no lease there; the reference
+  gathers every lease into an ``(L, n, R, Hkv, Dh)`` copy each step
+  (``_lease_kv_batch``) instead, so the port keeps no per-lease gather and
+  nothing to prune. A leased chunk, and MLA's decode, take the
+  reference's plain float32 partials (``attention_partial``). Sliding
+  windows are refused (``_check_zero_copy_ok``), as in the reference;
+* **page payloads**: ``export_page_payload`` / ``import_page_payloads``
+  carry one page's pool contents as CPU tensors in the pool's dtype,
+  bit-exact (numpy has no bfloat16), pinned on a CUDA engine;
+* the **handoff seam** of disaggregated serving: ``release_for_handoff``
+  and ``install_for_handoff``.
+
+A leased page is never written: the board pins it through the home
+allocator's refcount, and every writer of a shared page copies it first
+(COW), so reading the creditor's pools in place is safe although the
+port's pools change in place.
+
 The engine implements :class:`~repro_torch.serving.api.ServingBackend`;
 drive it through :class:`~repro_torch.serving.api.LLMService`. Best-of-n
 requests (``SamplingParams.n > 1``) COW-fork the parent's block table right
-after its prefill. Zero-copy leases, host swap and spill tiers, page-payload
-export/import and disaggregated handoff come with later slices of the port.
+after its prefill. The host swap and spill tiers (and their
+``EngineConfig`` knobs) come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -65,8 +98,8 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.core.distkv.dist_attention import (attention_partial,
                                                     merge_partials_tree)
-from repro_torch.core.paging.allocator import BlockAllocator
-from repro_torch.core.paging.layout import KVPageLayout
+from repro_torch.core.paging.allocator import BlockAllocator, BlockTable
+from repro_torch.core.paging.layout import KVPageLayout, check_schema
 from repro_torch.core.prefixcache.radix import PrefixCache
 from repro_torch.core.scheduling.iteration import IterationScheduler
 from repro_torch.core.scheduling.request import Request
@@ -76,8 +109,8 @@ from repro_torch.kernels.flash_prefill import prefill_attention_paged
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import sampling
 from repro_torch.models.attention import (_mla_scale, blockwise_attention,
-                                          gqa_layer, mla_effective_kv,
-                                          mla_layer)
+                                          gqa_layer, mla_effective_ctx,
+                                          mla_effective_kv, mla_layer)
 from repro_torch.models.layers import embed, rms_norm, unembed
 from repro_torch.models.moe import moe_forward
 from repro_torch.models.transformer import Model, seg_window
@@ -161,6 +194,12 @@ class PagedEngine:
         self.preemptions = 0
         self.decode_steps = 0  # batched decode calls (one per iteration)
         self.prefill_chunks = 0  # prefill chunk calls
+        # zero-copy leases: chunks that attended over a lease (plain
+        # partials, no prefill kernel), decode steps that merged remote
+        # partials, and the remote partials (one per creditor) over them
+        self.leased_chunks = 0
+        self.leased_decode_steps = 0
+        self.remote_partials = 0
         # requests submitted without sampling params decode greedily
         self._default_sp = SamplingParams()
         # best-of-n children awaiting their parent's prefill (COW fork)
@@ -172,6 +211,15 @@ class PagedEngine:
         else:
             self.trace = None
             self.metrics = None
+        # cluster serving: reader(home) -> (k_pages, v_pages) of a creditor
+        # engine, wired by RouterBackend for zero-copy leases
+        self.remote_reader = None
+        # modeled network seconds (payload copies, lease RPCs): a wall-clock
+        # engine cannot advance its clock, so this is observability only
+        self.net_time = 0.0
+        self._window = cfg.sliding_window \
+            if any(seg.attn_kind == "swa" for seg in self.model.plan) \
+            else None
 
     # -- model steps ------------------------------------------------------------
 
@@ -190,14 +238,14 @@ class PagedEngine:
         (``gqa_layer`` / ``mla_layer``). Its attend callable writes this
         call's pool payloads, the last two arguments the body hands it (k /
         v, or ckv / krope), into their (page, offset) slots in place, then
-        returns ``attention(seg, *queries, pool_a, pool_b)``."""
+        returns ``attention(seg, li, *queries, pool_a, pool_b)``."""
         kp, vp = self.k_pages[li], self.v_pages[li]
 
         def attend(*args):
             *queries, a, b = args
             kp[slot_pages, in_page] = a.flatten(0, 1).to(kp.dtype)
             vp[slot_pages, in_page] = b.flatten(0, 1).to(vp.dtype)
-            return attention(seg, *queries, kp, vp)
+            return attention(seg, li, *queries, kp, vp)
 
         body = mla_layer if self.flavor == "mla" else gqa_layer
         return body(self.cfg, p, x, positions, attend, mlp_fn)
@@ -210,21 +258,36 @@ class PagedEngine:
         return (cp[idx].reshape(n, -1, cp.shape[-1]).to(dtype),
                 rp[idx].reshape(n, -1, rp.shape[-1]).to(dtype))
 
+    @staticmethod
+    def _gathered(pool, idx):
+        """The GQA K or V of each row of pages ``idx`` (n, w) from a
+        layer's pool: (n, w * ps, Hkv, Dh)."""
+        return pool[idx].reshape(idx.shape[0], -1, *pool.shape[2:])
+
     @torch.no_grad()
-    def _prefill_chunk(self, tokens, page_ids, start: int):
+    def _prefill_chunk(self, tokens, page_ids, start: int, lease=None):
         """One prefill chunk at absolute positions ``[start, start + S)``.
 
         tokens: (S,) chunk token ids; page_ids: the physical pages covering
-        context positions ``[0, start + S)`` in order (cached prefix pages,
-        pages of earlier chunks and the pages this chunk lands in). Each
-        chunk token's K/V (MLA: its latent) is written to its (page, offset)
-        slot, then the chunk's queries attend causally over every context
-        page: keys past a query's position are masked, so stale slot
-        contents past the chunk's end are never read. GQA attends through
-        ``prefill_attention_paged``; MLA through ``blockwise_attention`` on
-        the gathered latent pages in the absorbed single-KV-head form,
-        scaled by ``_mla_scale``. Returns the logits (V,) of the chunk's
-        last position.
+        the local context positions ``[r_base, start + S)`` in order
+        (cached prefix pages, pages of earlier chunks and the pages this
+        chunk lands in), where ``r_base`` is the tokens of a zero-copy
+        ``lease`` (0 without one). Each chunk token's K/V (MLA: its latent)
+        is written to its (page, offset) slot, then the chunk's queries
+        attend causally over every context page: keys past a query's
+        position are masked, so stale slot contents past the chunk's end
+        are never read. GQA attends through ``prefill_attention_paged``;
+        MLA through ``blockwise_attention`` on the gathered latent pages in
+        the absorbed single-KV-head form, scaled by ``_mla_scale``. Returns
+        the logits (V,) of the chunk's last position.
+
+        With a lease, positions ``[0, r_base)`` are the lease's pages in
+        the creditor's pools, and the chunk attends as the reference's
+        does (``repro/serving/engine.py:386-404, 429-444``): a float32
+        causal ``attention_partial`` over the local pages, one over the
+        lease's tokens (all of them precede every query), and their merge.
+        The reference pads the lease's tokens to a power of two and masks
+        the pad; eagerly there is no pad.
 
         A MoE layer's capacity is that of the reference's padded chunk,
         ``_pow2_bucket(S)`` tokens (``repro/serving/engine.py:876`` pads
@@ -235,25 +298,48 @@ class PagedEngine:
         """
         cfg, ps, dev = self.cfg, self.ecfg.page_size, self.device
         s = len(tokens)
+        r_base = lease.num_tokens if lease is not None else 0
         toks = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
         pages = torch.as_tensor(np.asarray(page_ids, np.int32), device=dev)
+        idx = pages.long()[None]
         positions = start + torch.arange(s, device=dev)
-        tok_pages = pages.long()[positions // ps]
-        in_page = positions % ps
+        tok_pages = pages.long()[(positions - r_base) // ps]
+        in_page = (positions - r_base) % ps
+        if lease is not None:
+            home_a, home_b = self.remote_reader(lease.home)
+            lease_idx = torch.as_tensor(lease.blocks, device=dev)[None]
+            key_pos = r_base + torch.arange(idx.shape[1] * ps, device=dev)
+            mask_l = (positions[:, None] >= key_pos[None, :])[None]
+            mask_r = torch.ones(1, s, r_base, dtype=torch.bool, device=dev)
 
-        def attention(seg, *args):
+        def attention(seg, li, *args):
             if self.flavor == "gqa":
                 q, kp, vp = args
-                return prefill_attention_paged(q, kp, vp, pages,
-                                               q_offset=start,
-                                               window=seg_window(cfg, seg))
+                if lease is None:
+                    return prefill_attention_paged(
+                        q, kp, vp, pages, q_offset=start,
+                        window=seg_window(cfg, seg))
+                parts = [attention_partial(q, self._gathered(kp, idx),
+                                           self._gathered(vp, idx), mask_l),
+                         attention_partial(
+                             q, self._gathered(home_a[li], lease_idx),
+                             self._gathered(home_b[li], lease_idx), mask_r)]
+                return merge_partials_tree(*zip(*parts)).to(q.dtype)
             q_lat, qr, cp, rp = args
+            scale = _mla_scale(cfg)
             q_eff, k_eff, v_eff = mla_effective_kv(
-                q_lat, qr, *self._latent(cp, rp, pages.long()[None],
-                                         q_lat.dtype))
-            ctx = blockwise_attention(q_eff, k_eff, v_eff, causal=True,
-                                      q_offset=start, scale=_mla_scale(cfg))
-            return ctx[..., :cfg.kv_lora_rank]
+                q_lat, qr, *self._latent(cp, rp, idx, q_lat.dtype))
+            if lease is None:
+                ctx = blockwise_attention(q_eff, k_eff, v_eff, causal=True,
+                                          q_offset=start, scale=scale)
+                return ctx[..., :cfg.kv_lora_rank]
+            parts = [attention_partial(q_eff, k_eff, v_eff, mask_l,
+                                       scale=scale),
+                     attention_partial(q_eff, *mla_effective_ctx(
+                         *self._latent(home_a[li], home_b[li], lease_idx,
+                                       q_lat.dtype)), mask_r, scale=scale)]
+            ctx = merge_partials_tree(*zip(*parts))
+            return ctx[..., :cfg.kv_lora_rank].to(q_lat.dtype)
 
         x = embed(self.params["embed"], toks[None])  # (1, s, d)
         s_pad = _pow2_bucket(s)
@@ -264,10 +350,12 @@ class PagedEngine:
         logits = unembed(self.params["embed"], x, cfg.vocab_size,
                          fp32=cfg.logits_fp32)
         self.prefill_chunks += 1
+        self.leased_chunks += lease is not None
         return logits[0, 0]
 
     @torch.no_grad()
-    def _decode(self, tokens, positions, block_tables, ctx_lens):
+    def _decode(self, tokens, positions, block_tables, ctx_lens,
+                r_base=None, remote=()):
         """Batched one-token step over all slots.
 
         tokens, positions, ctx_lens: (n,) with ctx_len 0 for an inactive
@@ -280,6 +368,20 @@ class PagedEngine:
         V). Every row goes through a MoE layer's routing, inactive ones
         too, as in the reference: they take places in the experts'
         capacity.
+
+        Zero-copy leases, as the reference's ``_decode_zc_fn``
+        (``repro/serving/engine.py:540-636``): ``r_base`` (n,) is the
+        leading tokens each slot serves from a creditor (0 = fully local;
+        such a slot computes what it would without leases), and
+        ``remote`` holds one ``(home, block_tables (n, w), context_lens
+        (n,))`` per creditor: the lease pages of the slots that borrow from
+        ``home`` and their ``r_base``, context 0 on the other rows. A
+        slot's local table covers ``[r_base, ctx_len)``, its write lands at
+        ``position - r_base``, and its attention is the local partial
+        merged with one remote partial per creditor, each read in place
+        from that creditor's pools: for GQA through ``paged_attention``
+        with its ``(m, l)``, for MLA through the plain float32 partial
+        over the gathered latent.
         """
         cfg, ecfg, dev = self.cfg, self.ecfg, self.device
         n, ps = len(tokens), ecfg.page_size
@@ -287,26 +389,58 @@ class PagedEngine:
         pos = torch.as_tensor(positions, dtype=torch.int64, device=dev)
         bt = torch.as_tensor(block_tables, dtype=torch.int32, device=dev)
         lens = torch.as_tensor(ctx_lens, dtype=torch.int32, device=dev)
-        page_slot = bt[torch.arange(n, device=dev), pos // ps].long()
+        loc_pos, loc_lens = pos, lens
+        if remote:
+            rb = torch.as_tensor(r_base, dtype=torch.int32, device=dev)
+            loc_pos = (pos - rb).clamp_min(0)
+            loc_lens = (lens - rb).clamp_min(0)
+            remote = [(home, torch.as_tensor(rbt, dtype=torch.int32,
+                                             device=dev),
+                       torch.as_tensor(rlens, dtype=torch.int32, device=dev))
+                      for home, rbt, rlens in remote]
+        page_slot = bt[torch.arange(n, device=dev), loc_pos // ps].long()
         page_slot = torch.where(lens > 0, page_slot,
                                 torch.full_like(page_slot, ecfg.num_pages))
-        in_page = pos % ps
+        in_page = loc_pos % ps
 
-        def attention(seg, *args):
+        def attention(seg, li, *args):
             if self.flavor == "gqa":
                 q, kp, vp = args
-                att = paged_attention(q[:, 0], kp, vp, bt, lens,
-                                      page_size=ps,
-                                      window=seg_window(cfg, seg))
+                q1 = q[:, 0]
+                if not remote:
+                    att = paged_attention(q1, kp, vp, bt, lens, page_size=ps,
+                                          window=seg_window(cfg, seg))
+                    return att.reshape(n, 1, cfg.num_heads, cfg.head_dim)
+                sources = [(kp, vp, bt, loc_lens)]
+                for home, t, c in remote:
+                    home_a, home_b = self.remote_reader(home)
+                    sources.append((home_a[li], home_b[li], t, c))
+                parts = []
+                for pa, pb, t, c in sources:
+                    out, m, l = paged_attention(q1, pa, pb, t, c,
+                                                page_size=ps,
+                                                return_partials=True)
+                    # the merge's form: o unnormalised, m and l as they are
+                    parts.append((out.float() * l[..., None], m, l))
+                att = merge_partials_tree(*zip(*parts)).to(q.dtype)
                 return att.reshape(n, 1, cfg.num_heads, cfg.head_dim)
             q_lat, qr, cp, rp = args
+            scale = _mla_scale(cfg)
             q_eff, k_eff, v_eff = mla_effective_kv(
                 q_lat, qr, *self._latent(cp, rp, bt.long(), q_lat.dtype))
             keys = torch.arange(k_eff.shape[1], device=dev)
-            mask = (keys[None, :] < lens[:, None])[:, None, :]  # (n, 1, S)
-            o, m, l = attention_partial(q_eff, k_eff, v_eff, mask,
-                                        scale=_mla_scale(cfg))
-            ctx = merge_partials_tree([o], [m], [l])
+            mask = (keys[None, :] < loc_lens[:, None])[:, None, :]  # (n,1,S)
+            parts = [attention_partial(q_eff, k_eff, v_eff, mask,
+                                       scale=scale)]
+            for home, t, c in remote:
+                home_a, home_b = self.remote_reader(home)
+                k_r, v_r = mla_effective_ctx(*self._latent(
+                    home_a[li], home_b[li], t.long(), q_lat.dtype))
+                keys = torch.arange(k_r.shape[1], device=dev)
+                mask = (keys[None, :] < c[:, None])[:, None, :]
+                parts.append(attention_partial(q_eff, k_r, v_r, mask,
+                                               scale=scale))
+            ctx = merge_partials_tree(*zip(*parts))
             return ctx[..., :cfg.kv_lora_rank].to(q_lat.dtype)
 
         x = embed(self.params["embed"], toks[:, None])  # (n, 1, d)
@@ -317,6 +451,9 @@ class PagedEngine:
         logits = unembed(self.params["embed"], x, cfg.vocab_size,
                          fp32=cfg.logits_fp32)[:, 0]
         self.decode_steps += 1
+        if remote:
+            self.leased_decode_steps += 1
+            self.remote_partials += len(remote)
         return logits
 
     # -- ServingBackend protocol ------------------------------------------------
@@ -437,11 +574,18 @@ class PagedEngine:
             if req.scheduled_time is None:
                 req.scheduled_time = now
             table = self.scheduler.tables[req.request_id]
-            n_ctx_pages = -(-ch.end // ps)  # ceil
+            # positions [0, r_base) are served from a creditor's pages
+            # (zero-copy lease); the local table covers [r_base, end)
+            r_base = self.scheduler.remote_tokens_of(req.request_id)
+            lease = None
+            if r_base:
+                self._check_zero_copy_ok()
+                lease = self._checked_lease(req.request_id)
+            n_ctx_pages = -(-(ch.end - r_base) // ps)  # ceil, local pages
             t_chunk0 = time.monotonic() if tr is not None else 0.0
             logits = self._prefill_chunk(req.prompt[ch.start:ch.end],
                                          table.blocks[:n_ctx_pages],
-                                         ch.start)
+                                         ch.start, lease)
             if tr is not None:
                 tr.complete("engine", "chunk", rid=req.request_id,
                             ts=now + (t_chunk0 - t_wall0),
@@ -471,6 +615,7 @@ class PagedEngine:
             lens = np.zeros(n, np.int32)
             pos = np.zeros(n, np.int64)
             toks = np.zeros(n, np.int64)
+            rbase = np.zeros(n, np.int32)
             row_reqs: List[Optional[Request]] = [None] * n
             for req in plan.decode:
                 slot = self.slots[req.request_id]
@@ -481,8 +626,16 @@ class PagedEngine:
                 lens[slot] = req.context_len
                 pos[slot] = req.context_len - 1
                 toks[slot] = self.last_token[slot]
+                rbase[slot] = self.scheduler.remote_tokens_of(req.request_id)
                 row_reqs[slot] = req
-            logits = self._decode(toks, pos, bt, lens)
+            remote = ()
+            if rbase.any():
+                # >= 1 slot reads a borrowed prefix: local partial + one
+                # remote partial per creditor, merged; fully local slots
+                # ride along with r_base = 0
+                self._check_zero_copy_ok()
+                remote = self._remote_tables(row_reqs)
+            logits = self._decode(toks, pos, bt, lens, rbase, remote)
             sampled, lps = self._sample_rows(logits, row_reqs)
             for req in plan.decode:
                 slot = self.slots[req.request_id]
@@ -507,6 +660,7 @@ class PagedEngine:
                     plan.token_count() / self.scheduler.max_tokens)
             m.gauge("running", len(self.scheduler.running))
             m.gauge("waiting", len(self.scheduler.waiting))
+            m.gauge("net_time_s", self.net_time)
             if self.prefix_cache is not None:
                 m.gauge("prefix_hit_rate", self.prefix_cache.hit_rate)
             m.count("tokens", plan.token_count())
@@ -543,6 +697,141 @@ class PagedEngine:
                 # on it still reuses the parent's prompt pages)
                 self.scheduler.add_request(child)
         return forked
+
+    # -- zero-copy leases (borrowed rBlocks) -------------------------------------
+
+    def charge_network(self, seconds: float) -> None:
+        """Record modeled network time (payload copy / lease RPC). A
+        wall-clock engine cannot advance its clock, so this only feeds the
+        ``net_time`` stat."""
+        self.net_time += seconds
+        if self.trace is not None:
+            self.trace.instant("net", "charge", seconds=seconds)
+
+    def _check_zero_copy_ok(self) -> None:
+        if self.remote_reader is None:
+            raise RuntimeError(
+                "request holds a zero-copy lease but no remote_reader is "
+                "wired — RouterBackend must connect creditor pools")
+        if self._window is not None:
+            raise RuntimeError(
+                "zero-copy remote prefixes are unsupported with sliding-"
+                "window attention (the remote partial ignores the window)")
+
+    def _checked_lease(self, request_id: int):
+        """The request's lease, its pages' layout checked against ours."""
+        lease = self.scheduler.leases[request_id]
+        check_schema(self.kv_layout.schema, getattr(lease, "schema", None),
+                     where="zero-copy lease read")
+        return lease
+
+    def _remote_tables(self, row_reqs):
+        """One ``(home, block_tables (n, w) int32, context_lens (n,)
+        int32)`` per creditor of the decode rows ``row_reqs``: row ``i``
+        holds its lease's pages and tokens where its lease lives on
+        ``home``, context 0 (and page 0, never read) elsewhere."""
+        n = len(row_reqs)
+        by_home: Dict[int, List] = {}
+        for slot, req in enumerate(row_reqs):
+            if req is not None and req.request_id in self.scheduler.leases:
+                lease = self._checked_lease(req.request_id)
+                by_home.setdefault(lease.home, []).append((slot, lease))
+        remote = []
+        for home, rows in sorted(by_home.items()):
+            bt = np.zeros((n, max(l.num_pages for _, l in rows)), np.int32)
+            lens = np.zeros(n, np.int32)
+            for slot, lease in rows:
+                bt[slot, :lease.num_pages] = lease.blocks
+                lens[slot] = lease.num_tokens
+            remote.append((home, bt, lens))
+        return remote
+
+    # -- cross-instance page payloads ---------------------------------------------
+
+    def _to_host(self, t):
+        """A CPU copy of ``t``: pinned when ``t`` is on the card."""
+        if not t.is_cuda:
+            return t.clone()
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return out.copy_(t)
+
+    def export_page_payload(self, block: int):
+        """One physical page's contents, ``(schema, a, b)``: ``a`` / ``b``
+        are the page of pool A / B, ``(L, ps, *token_shape)`` CPU tensors in
+        the pool's dtype, bit-exact (pinned on a CUDA engine), tagged with
+        the engine's :attr:`KVPageLayout.schema`. A cluster router
+        publishes it to the distkv board or hands it to a peer engine (same
+        arch and params), which adopts the page without recomputing it."""
+        return (self.kv_layout.schema,
+                self._to_host(self.k_pages[:, block]),
+                self._to_host(self.v_pages[:, block]))
+
+    def import_page_payloads(self, blocks, payloads) -> None:
+        """Write published pages into freshly adopted local ``blocks``
+        (counterpart of :meth:`export_page_payload`). Every payload's schema
+        tag, dtype and shape is checked against the local pools before any
+        pool is touched; then one indexed write per pool lands every page
+        (the reference batches them so, ``repro/serving/engine.py:1077-
+        1097``)."""
+        if not blocks:
+            return
+        if len(blocks) != len(payloads):
+            raise ValueError(f"{len(blocks)} blocks for {len(payloads)} "
+                             "page payloads")
+        pools = (self.k_pages, self.v_pages)
+        for p in payloads:
+            check_schema(self.kv_layout.schema, p[0],
+                         where="page-payload import")
+            for t, pool in zip(p[1:], pools):
+                want = (pool.shape[0],) + tuple(pool.shape[2:])
+                if not isinstance(t, torch.Tensor) or t.dtype != pool.dtype \
+                        or tuple(t.shape) != want:
+                    raise ValueError(
+                        f"page payload of {getattr(t, 'dtype', type(t))} "
+                        f"{tuple(getattr(t, 'shape', ()))} does not fit a "
+                        f"pool page of {pool.dtype} {want}")
+        idx = torch.as_tensor(list(blocks), device=self.device)
+        for i, pool in enumerate(pools):
+            # each page crosses to the card on its own (asynchronously from
+            # pinned memory); the stack is a copy on the card
+            pool[:, idx] = torch.stack(
+                [p[1 + i].to(self.device, non_blocking=True)
+                 for p in payloads], 1)
+
+    # -- disaggregated prefill/decode handoff -------------------------------------
+
+    @property
+    def free_decode_slots(self) -> int:
+        """Decode slots a KVHandoff placement can still claim."""
+        return min(len(self.free_slots),
+                   self.scheduler.max_running - len(self.scheduler.running))
+
+    def release_for_handoff(self, req: Request) -> None:
+        """Prefill side of a KV handoff: return the request's decode slot
+        and detach it from the scheduler WITHOUT finishing. The caller must
+        already have secured the KV (exported payloads / lent the blocks)."""
+        slot = self.slots.pop(req.request_id, None)
+        if slot is not None:
+            self.free_slots.append(slot)
+        self.scheduler.release_request(req)
+
+    def install_for_handoff(self, req: Request, table: BlockTable,
+                            lease=None) -> None:
+        """Decode side of a KV handoff: claim a slot and enter decode
+        directly. ``table`` holds the locally-materialized KV pages (all of
+        them under migration; only the partial tail page under a zero-copy
+        lease, whose full pages stay on the prefill host)."""
+        if lease is not None:
+            self._check_zero_copy_ok()
+            check_schema(self.kv_layout.schema,
+                         getattr(lease, "schema", None),
+                         where="KV handoff install")
+        slot = self.free_slots.pop()
+        self.slots[req.request_id] = slot
+        # the decode input token is the first token, sampled on the prefill
+        # instance from its final chunk's logits
+        self.last_token[slot] = req.output[-1]
+        self.scheduler.install_running(req, table, lease)
 
     def run_to_completion(self, max_iters: int = 10_000) -> None:
         for _ in range(max_iters):

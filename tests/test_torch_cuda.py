@@ -661,3 +661,202 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# -- cluster serving: the zero-copy decode's partials --------------------------------
+
+def _table(rng, lens, ps, first_page):
+    """A block table of distinct pages from ``first_page`` on, covering the
+    longest of ``lens``."""
+    n = max(1, max(-(-x // ps) for x in lens))
+    pages = first_page + rng.permutation(len(lens) * n)
+    return pages.reshape(len(lens), n).astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", [(8, 8), (16, 4), (40, 8), (48, 1)],
+                         ids=["g1", "g4", "g5", "g48"])
+def test_cuda_kernel_partials_merge_to_the_whole_context(cuda, h, hkv,
+                                                         dtype):
+    """The zero-copy decode's use of the partials: a local context read
+    from one pool and a leased one (whole pages) from another, each through
+    the kernel with ``return_partials``, merged by ``merge_partials_tree``
+    after ``o = out * l``, equal the plain version over the union of the
+    two contexts. Rows hold a local context only, a leased one only, both,
+    or neither (context 0 in both partials); contexts run over several
+    splits. Each partial's out, m and l is also held against the plain
+    version."""
+    from repro_torch.core.distkv.dist_attention import merge_partials_tree
+    dh, ps = 128, 16
+    rng = np.random.default_rng(h + hkv)
+    loc = np.array([37, 0, _SPLIT + 5, 0, 2 * _SPLIT + 9, 16], np.int32)
+    rem = np.array([0, 3 * ps, 2 * _SPLIT, 0, _SPLIT, 4 * ps], np.int32)
+    lbt = _table(rng, loc, ps, 0)
+    rbt = _table(rng, rem, ps, 0)
+    npages = max(lbt.max(), rbt.max()) + 1
+    q = rng.standard_normal((len(loc), h, dh)).astype(np.float32)
+    kv = rng.standard_normal((4, npages, ps, hkv, dh)).astype(np.float32)
+    q, kv, lbt, rbt, loc_t, rem_t = [t.to(cuda) for t in _torch(
+        q, kv, lbt, rbt, loc, rem)]
+    q, kv = q.to(dtype), kv.to(dtype)
+    own_k, own_v, home_k, home_v = kv  # two instances' pools
+    before = (paged_attention.launches, paged_attention.partial_launches)
+    parts = []
+    for k, v, bt, lens in ((own_k, own_v, lbt, loc_t),
+                           (home_k, home_v, rbt, rem_t)):
+        out, m, l = paged_attention(q, k, v, bt, lens, page_size=ps,
+                                    return_partials=True)
+        torch.cuda.synchronize()
+        wo, wm, wl = tref.paged_attention(q, k, v, bt, lens, page_size=ps,
+                                          return_partials=True)
+        tol = F32 if dtype == torch.float32 else BF16
+        torch.testing.assert_close(out.float(), wo.float(), **tol)
+        torch.testing.assert_close(m, wm, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-4)
+        assert (l[lens == 0] == 0).all() and (out[lens == 0] == 0).all()
+        parts.append((out.float() * l[..., None], m, l))
+    assert (paged_attention.launches, paged_attention.partial_launches) == \
+        (before[0] + 2, before[1] + 2)
+    merged = merge_partials_tree(*zip(*parts))
+    # the plain version over one pool holding both instances' pages: the
+    # leased pages first (positions [0, rem)), then the local ones
+    pool_k = torch.cat([home_k, own_k])
+    pool_v = torch.cat([home_v, own_v])
+    width = rbt.shape[1] + lbt.shape[1]
+    union = torch.zeros((len(loc), width), dtype=torch.int32, device=cuda)
+    for i, (r, n_loc) in enumerate(zip(rem.tolist(), loc.tolist())):
+        nr, nl = r // ps, -(-n_loc // ps)
+        union[i, :nr] = rbt[i, :nr]
+        union[i, nr:nr + nl] = lbt[i, :nl] + npages
+    want = tref.paged_attention(q.float(), pool_k.float(), pool_v.float(),
+                                union, loc_t + rem_t, page_size=ps)
+    tol = F32 if dtype == torch.float32 else BF16
+    torch.testing.assert_close(merged, want, **tol)
+    assert (merged[(loc_t + rem_t) == 0] == 0).all()
+
+
+def _zero_copy_runs(cfg, params, dev, prompts, n_new):
+    """Zero-copy prefix sharing (the third prompt borrows the first two's
+    prefix) and zero-copy handoff over two engines on ``dev``; returns
+    the greedy tokens of both and the engines."""
+    from repro_torch.core.scheduling.request import Request
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+    from repro_torch.serving.router import RouterBackend
+
+    class Scripted:
+        def __init__(self):
+            self.order = [0, 0, 1]
+
+        def choose(self, req, children):
+            return self.order.pop(0)
+
+    tokens, engines = [], []
+    for kw in (dict(policy=Scripted(), prefix_share=True,
+                    share_mode="zero_copy", hot_threshold=1),
+               dict(roles="1p1d", handoff_mode="zero_copy")):
+        pair = [PagedEngine(cfg, params, EngineConfig(
+            num_pages=64, page_size=8, max_slots=4, max_tokens_per_iter=16,
+            enable_prefix_cache=True), device=dev) for _ in range(2)]
+        router = RouterBackend(pair, **kw)
+        reqs = [Request(i, 0.0, list(p), max_new_tokens=n_new)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            router.add_request(r)
+            while router.has_work:
+                router.step()
+        assert router.pages_borrowed > 0 and not router.g.ledger
+        tokens.append([r.full_output for r in reqs])
+        engines += pair
+    return tokens, engines
+
+
+def _assert_tokens_near(cfg, params, prompts, a_runs, b_runs):
+    """Greedy tokens of two devices, equal but where ``Model.forward``'s
+    top-2 logits lie within 2**-7 of the largest |logit| (comparing that
+    request stops there)."""
+    from repro_torch.models.transformer import Model
+    model = Model(cfg)
+    compared = 0
+    for a_run, b_run in zip(a_runs, b_runs):
+        for prompt, a, b in zip(prompts, a_run, b_run):
+            for i, (x, y) in enumerate(zip(a, b)):
+                compared += 1
+                if x == y:
+                    continue
+                logits, _ = model.forward(params,
+                                          torch.tensor([prompt + a[:i]]))
+                last = logits[0, -1, :cfg.vocab_size]
+                top = torch.topk(last, 2).values
+                assert top[0] - top[1] < 2.0 ** -7 * last.abs().max(), \
+                    (i, x, y)
+                break
+    return compared
+
+
+@pytest.mark.gpu
+def test_cuda_zero_copy_engine_matches_cpu_engine(cuda):
+    """h2o-danube-1.8b at smoke size without its window, float32: zero-copy
+    prefix sharing over chunked suffixes and a zero-copy handoff give the
+    CPU engines' greedy tokens (by the near-tie rule). The decode launches
+    paged_attention with partials once per layer for its local context and
+    once per layer and creditor; a leased chunk takes the plain partials,
+    every other chunk the prefill kernel."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+
+    cfg = dataclasses.replace(smoke_config("h2o-danube-1.8b"),
+                              dtype="float32", logits_fp32=True,
+                              sliding_window=None)
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(23)
+    prefix = rng.integers(0, 512, 16).tolist()
+    prompts = [prefix + rng.integers(0, 512, n).tolist() for n in (3, 5, 21)]
+    runs = {}
+    before = (paged_attention.launches, paged_attention.partial_launches,
+              flash_prefill.launches)
+    for dev in ("cpu", cuda):
+        runs[str(dev)] = _zero_copy_runs(cfg, _to(params, dev), dev,
+                                         prompts, 6)
+    engines = runs[str(cuda)][1]
+    L = cfg.num_layers
+    leased = sum(e.leased_decode_steps for e in engines)
+    remote = sum(e.remote_partials for e in engines)
+    assert leased > 0 and remote >= leased
+    assert paged_attention.launches - before[0] == L * (
+        sum(e.decode_steps for e in engines) + remote)
+    assert paged_attention.partial_launches - before[1] == \
+        L * (leased + remote)
+    assert flash_prefill.launches - before[2] == L * sum(
+        e.prefill_chunks - e.leased_chunks for e in engines)
+    assert _assert_tokens_near(cfg, params, prompts, runs["cpu"][0],
+                               runs[str(cuda)][0]) >= 30
+
+
+@pytest.mark.gpu
+def test_cuda_mla_zero_copy_engine_matches_cpu_engine(cuda):
+    """deepseek-v2-236b at smoke size, float32: zero-copy sharing and
+    handoff over latent pages on the card give the CPU engines' greedy
+    tokens (by the near-tie rule), and launch neither attention kernel."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+
+    cfg = dataclasses.replace(smoke_config("deepseek-v2-236b"),
+                              dtype="float32", logits_fp32=True)
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(29)
+    prefix = rng.integers(0, 512, 16).tolist()
+    prompts = [prefix + rng.integers(0, 512, n).tolist() for n in (3, 5, 21)]
+    runs = {}
+    before = (paged_attention.launches, flash_prefill.launches)
+    for dev in ("cpu", cuda):
+        runs[str(dev)] = _zero_copy_runs(cfg, _to(params, dev), dev,
+                                         prompts, 6)
+    assert (paged_attention.launches, flash_prefill.launches) == before
+    assert sum(e.leased_decode_steps for e in runs[str(cuda)][1]) > 0
+    assert _assert_tokens_near(cfg, params, prompts, runs["cpu"][0],
+                               runs[str(cuda)][0]) >= 30
