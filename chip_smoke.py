@@ -49,7 +49,17 @@ or the JAX package) and:
    prefix-cache engine resuming mid-page, whose greedy tokens must equal a
    cold engine's; a context past the 4096-token window, through both
    kernels; a pool too small for its requests, which forces preemption
-   and recompute; the last two against ``Model.forward``;
+   and recompute; the last two against ``Model.forward``. Then the host
+   tier on the same weights and preemption traffic, with 128 pinned host
+   pages, in three configurations (``swap`` with lifo victims, the same
+   with speculative swap-outs, ``auto`` with cost victims): each swaps out
+   and back in where its mode swaps (``swap`` recomputing nothing), runs
+   no prefill chunk after a decode-phase swap-in, exports a trace that
+   passes ``validate_trace_events`` and ``validate_swap_balance``, holds
+   its tokens against ``Model.forward`` and empties the allocator's
+   device, host and pending ledgers; and a prefix spill round trip: a page
+   of the cached 1000-token prefix spilled to a host page bit for bit and
+   restored by the next hit, whose tokens equal a cold engine's;
 7. mamba2 phase: full-width mamba2-1.3b (48 layers, d 2048, 64 SSD heads
    of 64, state 128, random weights from a seed, bfloat16): ``Model.
    prefill`` of 4 prompts x 1024 tokens, ``ssd_scan`` launched 48 times,
@@ -88,8 +98,16 @@ or the JAX package) and:
    debt ledger (empty at the end), the kernels' launches (with partials)
    and ``max_memory_allocated``; the launch counts must equal layers x
    the engines' decode steps, remote partials and unleased chunks. Then
-   the float32 gate: the four modes at full width and 2 layers, whose
-   tokens must equal a single float32 engine's but at a near-tie;
+   the float32 gate: the four modes at full width and 2 layers, and a peer
+   spill mode (a prefix page of instance 0 parked in instance 1's free
+   device memory and restored by the next hit, every loan repaid), whose
+   tokens must equal a single float32 engine's but at a near-tie. Between
+   the OPT serve phase and the cluster phase, the host tier measured: the
+   serve traffic on a 94-page pool in four modes (sacrifice; ``swap``;
+   speculative swap-outs; ``auto`` with cost victims, 188 pinned host
+   pages), each with its tokens/s, TTFT, swap events and pages, memory,
+   and the movers' device->host and host->device GB/s from CUDA events
+   around them, beside the copied ``NetworkModel``'s 32 GB/s;
 10. MLA phases: deepseek-v2-236b at full width (d 5120, 128 heads, latent
    r 512 + rope 64, q_lora 1536, 160 experts of 1536 top-6 + 2 shared, a
    dense first layer of 12288), cut to 8 of its 60 layers, bf16, served
@@ -190,6 +208,26 @@ ORACLE_LAYERS = 2
 PREFIX_COMMON, PREFIX_SUFFIXES = 1000, (50, 70)
 LONG_PROMPT, LONG_NEW, LONG_PAGES = 4200, 24, 512
 PREEMPT_PROMPTS, PREEMPT_NEW, PREEMPT_PAGES = [500] * 4, 40, 100
+# the host tier on the same traffic (danube, float32): host pages, the three
+# swap configurations, and the prefix spill round trip's budget
+SWAP_HOST_PAGES = 128
+HOST_TIER_MODES = {
+    "swap": dict(swap_mode="swap", victim_policy="lifo"),
+    "speculative swap": dict(swap_mode="swap", victim_policy="lifo",
+                             speculative_swap=True),
+    "auto, cost victims": dict(swap_mode="auto", victim_policy="cost"),
+}
+SPILL_BUDGET = 8
+# the host tier measured on paper-opt-13b under the serve traffic: a pool of
+# pages of 16 tight enough to swap (at the engine's default budget of 2048
+# tokens), twice its pages on the host so every victim fits there, and the
+# four preemption modes (sacrifice without a host tier)
+OPT_SWAP_ENGINE = dict(num_pages=94, page_size=PS, max_slots=8,
+                       max_tokens_per_iter=2048)
+OPT_HOST_PAGES = 188
+OPT_SWAP_MODES = {"sacrifice": {}, **HOST_TIER_MODES}
+# the modelled device<->host lane of the copied NetworkModel: 256 Gb/s
+NETMODEL_PCIE_GB_S = 32.0
 # GQA groups of the configs beyond {1, 2, 4, 8}, at head_dim 128: (H, Hkv)
 # of llama4-scout (G 5), a G 6, mistral-large (G 12), granite (G 48)
 GQA_GROUPS = [(40, 8), (12, 2), (96, 8), (48, 1)]
@@ -225,6 +263,10 @@ CLUSTER_ENGINE = dict(num_pages=512, page_size=PS, max_slots=8,
                       enable_prefix_cache=True)
 CLUSTER_PREFIX, CLUSTER_WARM, CLUSTER_NEW = 512, 32, 32
 CLUSTER_SUFFIXES = [32, 64, 96, 128, 160, 192, 224, 256]
+# the float32 gate's peer spill mode: a cold prefix page of instance 0
+# parked in instance 1's free device memory and restored on the next hit
+PEER_SPILL = dict(policy="round_robin", peer_spill=True)
+PEER_SPILL_ENGINE = dict(CLUSTER_ENGINE, host_pages=16, cache_spill_pages=4)
 CLUSTER_MODES = {
     "zero-copy share": dict(policy="round_robin", prefix_share=True,
                             share_mode="zero_copy", hot_threshold=1),
@@ -704,7 +746,7 @@ def unwatch(engines) -> None:
 
 
 def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw,
-                params=None):
+                params=None, instrument=None):
     """Serve ``requests`` ((prompt, SamplingParams) pairs) through
     LLMService on a PagedEngine of ``engine_kw``, with ``cfg``'s weights
     drawn from ``seed`` on the card (or ``params``, already there). The
@@ -712,7 +754,9 @@ def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw,
     paged_attention must equal layers x the engine's decode steps and
     flash_prefill layers x its prefill chunks; on an MLA engine (the
     reference's plain latent path) both must be 0. Every logit the engine
-    returns must be finite, every token in the vocab."""
+    returns must be finite, every token in the vocab. ``instrument(engine)``
+    runs before the requests and returns a function whose dict joins the
+    stats after them."""
     from repro_torch.bridge import init_params
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.paged_attention import paged_attention
@@ -738,6 +782,7 @@ def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw,
     # launches of each attention kernel per layer and engine call
     per_layer = cfg.num_layers if engine.flavor == "gqa" else 0
     finite = watch_finite([engine], cfg.vocab_size, dev)
+    read_instrument = instrument(engine) if instrument is not None else None
     svc = LLMService(engine)
     ids = [(svc.submit(prompt, sp), sp) for prompt, sp in requests]
 
@@ -789,7 +834,9 @@ def serve_model(label: str, cfg, dev, seed: int, requests, engine_kw,
                  iterations=engine.iterations, decode_steps=decode_steps,
                  prefill_chunks=chunks, launches=launches,
                  prefill_launches=prefill_launches)
-    del engine, params, svc
+    if read_instrument is not None:
+        stats.update(read_instrument())
+    del engine, params, svc, read_instrument
     torch.cuda.empty_cache()
     stats.update(phase_end(label, t_phase))
     return stats
@@ -1110,6 +1157,7 @@ def slice1_phase(dev, seed: int):
         f"to a cold engine's")
     stats["prefix_cache"] = dict(cached_tokens=hit, equal_to_cold=same,
                                  oracle=cold_check)
+    spill_prompt, spill_cold = prompts[1], runs[False][1]
 
     # a context past the window, in both kernels
     engine = PagedEngine(cfg, params, EngineConfig(
@@ -1148,10 +1196,269 @@ def slice1_phase(dev, seed: int):
         f"{PREEMPT_PROMPTS[0]} tokens + {PREEMPT_NEW} new on "
         f"{PREEMPT_PAGES} pages of {PS}: {preemptions} preemptions, "
         "recomputed")
+    stats["host_tier"] = host_tier_phase(cfg, params, dev, prompts, common,
+                                         spill_prompt, spill_cold)
     del params
     torch.cuda.empty_cache()
     stats.update(phase_end("slice-1 phase", t0))
     return stats
+
+
+# -- the host tier: swap-to-host preemption and prefix spill ------------------------
+
+def swap_spy(engine):
+    """Count the swap events and pages of ``engine``'s plans as it runs, and
+    check that a request swapped in while decoding runs no prefill chunk
+    afterwards unless it was preempted since (it resumes, it does not
+    re-prefill). Returns the counts, filled in place."""
+    counts = dict(swap_outs=0, swap_ins=0, issues=0, completes=0,
+                  cancels=0, pages_out=0, pages_in=0, pages_issued=0)
+    resumed = set()
+    schedule = engine.scheduler.schedule
+
+    def spied():
+        plan = schedule()
+        for ch in plan.chunks:
+            assert ch.req.request_id not in resumed, \
+                f"request {ch.req.request_id} re-prefilled after its swap-in"
+        resumed.difference_update(r.request_id for r in plan.preempted)
+        resumed.update(r.request_id for r, _ in plan.swap_in if r.output)
+        for key, name in (("swap_out", "swap_outs"), ("swap_in", "swap_ins"),
+                          ("swap_issue", "issues"),
+                          ("swap_complete", "completes"),
+                          ("swap_cancel", "cancels")):
+            counts[name] += len(getattr(plan, key))
+        counts["pages_out"] += sum(len(p) for _, p in plan.swap_out)
+        counts["pages_issued"] += sum(len(p) for _, p in plan.swap_issue)
+        counts["pages_in"] += sum(len(p) for _, p in plan.swap_in)
+        return plan
+
+    engine.scheduler.schedule = spied
+    return counts
+
+
+def time_movers(engine):
+    """CUDA events around each swap mover of ``engine`` (the scheduler's
+    hooks), on the stream its copies run on: the current stream, or for a
+    speculative issue the side stream once it has caught up with
+    everything queued before. Returns ``{"out": [...], "in": [...]}`` of
+    (pages, start, end), filled as the engine runs."""
+    timed = {"out": [], "in": []}
+    sch = engine.scheduler
+
+    def wrap(fn, way, side):
+        def run(pairs):
+            stream = torch.cuda.current_stream()
+            if side:
+                engine._swap_stream.wait_stream(stream)
+                stream = engine._swap_stream
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            fn(pairs)
+            end.record(stream)
+            timed[way].append((len(pairs), start, end))
+        return run
+
+    sch.swap_out_hook = wrap(sch.swap_out_hook, "out", False)
+    sch.swap_issue_hook = wrap(sch.swap_issue_hook, "out", True)
+    sch.swap_in_hook = wrap(sch.swap_in_hook, "in", False)
+    return timed
+
+
+def mover_rates(timed, page_bytes: int) -> dict:
+    """Pages, milliseconds and GB/s of each direction of ``time_movers``'s
+    record (read after a synchronize)."""
+    out = {}
+    for way, rec in timed.items():
+        pages = sum(n for n, _, _ in rec)
+        ms = sum(start.elapsed_time(end) for _, start, end in rec)
+        out[way] = dict(calls=len(rec), pages=pages, ms=ms,
+                        gb_per_s=pages * page_bytes / ms / 1e6 if ms else None)
+    return out
+
+
+def host_tier_phase(cfg, params, dev, prompts, common, spill_prompt,
+                    cold):
+    """The host tier on full-width h2o-danube-1.8b in float32, on the
+    slice-1 phase's weights and preemption traffic (``prompts`` on
+    PREEMPT_PAGES pages of 16), with SWAP_HOST_PAGES pinned host pages, in
+    each of HOST_TIER_MODES. Each run must swap out at least once where
+    the mode swaps (``auto`` may sacrifice instead, and what it picked is
+    reported), swap every page back in, recompute nothing in ``swap``
+    mode, run no prefill chunk after a decode-phase swap-in, export a
+    trace that passes ``validate_trace_events`` and
+    ``validate_swap_balance``, hold its tokens against Model.forward, and
+    leave the allocator's device, host and pending ledgers empty.
+
+    Then the prefix spill round trip: a prompt of the PREFIX_COMMON shared
+    tokens is cached (its 62 full pages), the cache frees one page as the
+    scheduler's eviction does under pool pressure (called directly: under
+    real pressure the copied radix cache cannot evict past a spilled page,
+    ROADMAP §3), which spills the prefix's last full page to a host page
+    bit for bit, and ``spill_prompt`` (the prefix + 70 tokens) hits all 62
+    pages, the last restored from host; its tokens must equal ``cold``
+    (the slice-1 phase's cold engine on that prompt) but at a near-tie."""
+    from repro_torch.core.telemetry import (to_chrome_trace,
+                                            validate_swap_balance,
+                                            validate_trace_events)
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.serving.api import LLMService, SamplingParams
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+
+    t0 = time.monotonic()
+    stats = dict(host_pages=SWAP_HOST_PAGES, pages=PREEMPT_PAGES, modes={})
+    launches = prefill_launches = 0
+    for label, mode in HOST_TIER_MODES.items():
+        engine = PagedEngine(cfg, params, EngineConfig(
+            **dict(ORACLE_ENGINE, num_pages=PREEMPT_PAGES),
+            host_pages=SWAP_HOST_PAGES, enable_telemetry=True, **mode),
+            device=dev)
+        assert engine.h_k_pages.is_pinned() and engine.h_v_pages.is_pinned()
+        counts = swap_spy(engine)
+        l0, p0 = paged_attention.launches, flash_prefill.launches
+        outs = LLMService(engine).generate(
+            prompts, SamplingParams(max_new_tokens=PREEMPT_NEW))
+        torch.cuda.synchronize()
+        launches += paged_attention.launches - l0
+        prefill_launches += flash_prefill.launches - p0
+        trace = to_chrome_trace(engine.trace.events())
+        problems = validate_trace_events(trace) + \
+            validate_swap_balance(trace)
+        assert not problems, f"host tier, {label}: {problems[:5]}"
+        assert engine.swapped_out == engine.swapped_in
+        if mode["swap_mode"] == "swap":
+            assert engine.swapped_out >= 1 and engine.preemptions == 0, \
+                f"host tier, {label}: {engine.swapped_out} swap-outs, " \
+                f"{engine.preemptions} preemptions"
+        if mode.get("speculative_swap"):
+            assert counts["issues"] == counts["completes"] + \
+                counts["cancels"] >= 1, counts
+        a = engine.allocator
+        drained = a.num_free == a.num_blocks and a.swapped_pages == 0 \
+            and a.pending_out_pages == 0 and a.host_num_free == SWAP_HOST_PAGES
+        assert drained, f"host tier, {label}: ledgers not empty"
+        st = dict(counts, swapped_out=engine.swapped_out,
+                  swapped_in=engine.swapped_in,
+                  preemptions=engine.preemptions,
+                  iterations=engine.iterations, trace_events=len(
+                      trace["traceEvents"]), drained=drained)
+        del engine
+        st["oracle"] = oracle_check(f"host tier, {label}", cfg, params,
+                                    prompts, [o.token_ids for o in outs],
+                                    dev)
+        stats["modes"][label] = st
+        picked = "swapped" if st["swapped_out"] else "sacrificed"
+        log(f"host tier, {label}: {st['swapped_out']} swap-outs, "
+            f"{st['swapped_in']} swap-ins ({st['pages_out']} + "
+            f"{st['pages_issued']} issued pages out, {st['pages_in']} in), "
+            f"{st['issues']} issues, {st['completes']} completes, "
+            f"{st['cancels']} cancels, {st['preemptions']} preemptions "
+            f"({picked}); trace of {st['trace_events']} events valid; "
+            "ledgers empty")
+
+    # the prefix spill round trip
+    engine = PagedEngine(cfg, params, EngineConfig(
+        **dict(ORACLE_ENGINE, num_pages=PREEMPT_PAGES),
+        enable_prefix_cache=True, host_pages=SWAP_HOST_PAGES,
+        cache_spill_pages=SPILL_BUDGET), device=dev)
+    svc = LLMService(engine)
+    svc.generate([common], SamplingParams(max_new_tokens=1))
+    pc = engine.prefix_cache
+    full = PREFIX_COMMON // PS
+    assert pc.num_pages == full, pc.num_pages
+    (leaf,) = pc._lru_leaves()
+    before = [pool[:, leaf.block].clone() for pool in (engine.k_pages,
+                                                       engine.v_pages)]
+    assert pc.evict(1) == 1 and leaf.host_block >= 0
+    for got, want in zip(engine.host_page(leaf.host_block), before):
+        assert torch.equal(got.to(dev), want), "the spilled page changed"
+    prompt = spill_prompt
+    (out,) = svc.generate([prompt], SamplingParams(max_new_tokens=ORACLE_NEW))
+    hit = out.metrics.num_cached_tokens
+    assert hit == full * PS and pc.spilled_pages == pc.restored_pages == 1, \
+        (hit, pc.spilled_pages, pc.restored_pages)
+    if out.token_ids != cold.token_ids:
+        i = next(j for j, (x, y) in enumerate(zip(out.token_ids,
+                                                  cold.token_ids)) if x != y)
+        for label, toks in (("restored", out.token_ids),
+                            ("cold", cold.token_ids)):
+            oracle_check(f"host tier, spill ({label} engine)", cfg, params,
+                         [prompt], [toks[:i + 1]], dev)
+    pc.clear()
+    a = engine.allocator
+    assert a.num_free == a.num_blocks and a.swapped_pages == 0
+    del engine, svc
+    stats["spill"] = dict(cached_tokens=hit, spilled_pages=1,
+                          restored_pages=1,
+                          equal_to_cold=out.token_ids == cold.token_ids)
+    log(f"host tier, spill: a {len(prompt)}-token prompt hit {hit} cached "
+        f"tokens, the last of {full} pages restored from a host page; greedy "
+        f"tokens {'equal' if stats['spill']['equal_to_cold'] else 'differ at a near-tie'}"
+        " to a cold engine's")
+    stats.update(launches=launches, prefill_launches=prefill_launches,
+                 seconds=time.monotonic() - t0)
+    return stats
+
+
+def host_tier_measure(cfg, params, dev, seed: int) -> dict:
+    """The host tier on full-width paper-opt-13b in bf16 (the OPT serve
+    phase's weights) under the serve traffic, on OPT_SWAP_ENGINE's pool
+    with OPT_HOST_PAGES pinned host pages, in each of OPT_SWAP_MODES (the
+    sacrifice mode has no host tier): tokens/s, TTFT, preemptions, swap
+    events and pages, max_memory_allocated, the pinned host bytes, and the
+    device->host and host->device GB/s of the movers from CUDA events
+    around them. A finding, not a claim: no limit is checked but that
+    every run serves every token."""
+    page_bytes = 2 * cfg.num_layers * PS * cfg.num_kv_heads * cfg.head_dim \
+        * torch.tensor([], dtype=cfg.torch_dtype).element_size()
+    modes = {}
+    for label, mode in OPT_SWAP_MODES.items():
+        host = OPT_HOST_PAGES if mode else 0
+
+        def instrument(engine, host=host):
+            counts = swap_spy(engine)
+            timed = time_movers(engine) if host else None
+            pinned = engine.h_k_pages.nbytes + engine.h_v_pages.nbytes \
+                if host else 0
+            if host:
+                assert engine.h_k_pages.is_pinned()
+
+            def read():
+                return dict(counts, swapped_out=engine.swapped_out,
+                            swapped_in=engine.swapped_in,
+                            preemptions=engine.preemptions,
+                            pinned_host_bytes=pinned, page_bytes=page_bytes,
+                            movers=mover_rates(timed, page_bytes)
+                            if timed is not None else None)
+            return read
+
+        st = serve_model(f"OPT host tier, {label}", cfg, dev, seed,
+                         serve_requests(cfg.vocab_size, seed),
+                         dict(OPT_SWAP_ENGINE, host_pages=host, **mode),
+                         params=params, instrument=instrument)
+        modes[label] = st
+        rates = st["movers"] or {}
+        log(f"OPT host tier, {label}: {st['tokens_per_s']:.1f} tokens/s, TTFT "
+            f"mean {st['ttft_mean_s'] * 1e3:.1f} ms, max "
+            f"{st['ttft_max_s'] * 1e3:.1f} ms, {st['preemptions']} "
+            f"preemptions, {st['swapped_out']} swap-outs / "
+            f"{st['swapped_in']} swap-ins / {st['issues']} issues / "
+            f"{st['cancels']} cancels, pages out {st['pages_out']} + "
+            f"{st['pages_issued']} issued, in {st['pages_in']}, "
+            f"max_memory_allocated {st['peak_gib']:.2f} GiB, pinned host "
+            f"{st['pinned_host_bytes'] / 2 ** 30:.2f} GiB" + "".join(
+                f"; {way} {r['pages']} pages in {r['ms']:.2f} ms = "
+                f"{r['gb_per_s']:.1f} GB/s" for way, r in rates.items()
+                if r["ms"]) + (f" (NetworkModel assumes "
+                               f"{NETMODEL_PCIE_GB_S:.0f} GB/s)"
+                               if rates else ""))
+    return dict(arch=cfg.arch_id, engine=OPT_SWAP_ENGINE,
+                host_pages=OPT_HOST_PAGES, modes=modes,
+                launches=sum(m["launches"] for m in modes.values()),
+                prefill_launches=sum(m["prefill_launches"]
+                                     for m in modes.values()))
 
 
 # -- MoE and the dense GQA configs --------------------------------------------------
@@ -1210,6 +1517,7 @@ def dense_phases(dev, seed: int):
     serves[cfg.arch_id] = serve_model(
         "OPT serve phase", cfg, dev, seed,
         serve_requests(cfg.vocab_size, seed), SERVE_ENGINE, params=params)
+    host_tier = host_tier_measure(cfg, params, dev, seed)
     cluster = cluster_phase(cfg, params, dev, seed)
     del params
     cluster["gate"] = cluster_gate(dev, seed + 1)
@@ -1222,7 +1530,8 @@ def dense_phases(dev, seed: int):
     for arch in ["paper-opt-13b", *DENSE_LAYERS]:
         oracles[arch] = oracle_model(f"{arch} oracle", dataclasses.replace(
             get_config(arch), num_layers=ORACLE_LAYERS), dev, seed + 1)
-    return dict(serve=serves, oracle=oracles, cluster=cluster)
+    return dict(serve=serves, oracle=oracles, cluster=cluster,
+                host_tier=host_tier)
 
 
 # -- cluster serving on paper-opt-13b ----------------------------------------------
@@ -1242,10 +1551,12 @@ def cluster_traffic(vocab_size: int, seed: int):
 
 
 def cluster_run(label: str, cfg, params, dev, mode_kw, warm, prompts,
-                new: int):
+                new: int, engine_kw=None, warm_new=None, after_warm=None):
     """One cluster mode: RouterBackend(**mode_kw) over two PagedEngines of
-    CLUSTER_ENGINE built on ``params`` (shared, not copied). ``warm`` (or
-    None) runs to completion first; then ``prompts`` arrive together, with
+    ``engine_kw`` (default CLUSTER_ENGINE) built on ``params`` (shared, not
+    copied). ``warm`` (or None) runs to completion first, with
+    ``warm_new`` (default ``new``) tokens, then ``after_warm(engines,
+    router)`` where given; then ``prompts`` arrive together, with
     ``new`` greedy tokens each, through a fresh LLMService (TTFT from its
     first poll). The launch counts are zeroed before the warm request and
     read after the last: paged_attention must equal layers x (decode steps
@@ -1262,8 +1573,8 @@ def cluster_run(label: str, cfg, params, dev, mode_kw, warm, prompts,
 
     t_mode = time.monotonic()
     torch.cuda.reset_peak_memory_stats()
-    engines = [PagedEngine(cfg, params, EngineConfig(**CLUSTER_ENGINE),
-                           device=dev) for _ in range(2)]
+    engines = [PagedEngine(cfg, params, EngineConfig(
+        **(engine_kw or CLUSTER_ENGINE)), device=dev) for _ in range(2)]
     assert engines[0].params is engines[1].params is params
     finite = watch_finite(engines, cfg.vocab_size, dev)
     router = RouterBackend(engines, **mode_kw)
@@ -1271,8 +1582,12 @@ def cluster_run(label: str, cfg, params, dev, mode_kw, warm, prompts,
     paged_attention.launches = paged_attention.partial_launches = 0
     flash_prefill.launches = 0
     if warm is not None:
-        (out,) = LLMService(router).generate([warm], sp)
-        assert len(out.token_ids) == new
+        warm_new = warm_new or new
+        (out,) = LLMService(router).generate(
+            [warm], SamplingParams(max_new_tokens=warm_new))
+        assert len(out.token_ids) == warm_new
+        if after_warm is not None:
+            after_warm(engines, router)
     svc = LLMService(router)
     ids = [svc.submit(prompt, sp) for prompt in prompts]
     delivered = {}  # request id -> wall s until its first token came back
@@ -1324,6 +1639,10 @@ def cluster_run(label: str, cfg, params, dev, mode_kw, warm, prompts,
         instances=[o.metrics.instance_id for o in outs],
         net_time_s=sum(e.net_time for e in engines),
         ledger=[(e.creditor, e.debtor, e.blocks) for e in router.g.ledger],
+        peer_spilled_pages=sum(e.prefix_cache.peer_spilled_pages
+                               for e in engines if e.prefix_cache),
+        peer_restored_pages=sum(e.prefix_cache.peer_restored_pages
+                                for e in engines if e.prefix_cache),
         **total)
     if router.handoff is not None:
         stats.update({k: getattr(router.handoff, k) for k in (
@@ -1404,9 +1723,24 @@ def cluster_phase(cfg, params, dev, seed: int):
                 seconds=time.monotonic() - t0)
 
 
+def park_prefix_page(engines, router) -> None:
+    """The peer spill mode's step after its warm request (the shared
+    prefix + half a page, one new token, so that its 32 full cached pages
+    are the prefix's): engine 0's cache frees one page as its eviction
+    does under pressure (called directly, ROADMAP §3), which parks the
+    prefix's last page in engine 1's free device memory (a lent block)."""
+    pc = engines[0].prefix_cache
+    assert pc.num_pages == CLUSTER_PREFIX // PS, pc.num_pages
+    assert pc.evict(1) == 1 and pc.peer_spilled_pages == 1
+    assert router.g.lent_by(1) == 1
+
+
 def cluster_gate(dev, seed: int):
     """The four cluster modes in float32 (``logits_fp32``) on paper-opt-13b
-    at full width and ORACLE_LAYERS layers, against a single float32
+    at full width and ORACLE_LAYERS layers, and a peer spill mode
+    (``RouterBackend(peer_spill=True)`` over engines with a spill budget:
+    a prefix page of instance 0 parked on instance 1 and restored by the
+    next hit, every loan repaid), against a single float32
     engine that serves each prompt alone: a token may differ only where
     Model.forward over the prompt and the single engine's tokens puts the
     two on top within NEAR_TIE of the largest |logit| (a zero-copy run
@@ -1439,13 +1773,25 @@ def cluster_gate(dev, seed: int):
                           prompts, [single[tuple(p)] for p in prompts], dev)
     model = Model(cfg)
     stats = dict(oracle=oracle, modes={})
-    for label, kw in CLUSTER_MODES.items():
+    for label, kw in [*CLUSTER_MODES.items(), ("peer spill", PEER_SPILL)]:
         share = label.endswith("share")
-        mode_prompts = shared if share else handoff
-        tokens, st = cluster_run(f"float32 {label}", cfg, params, dev, kw,
-                                 warm if share else None, mode_prompts,
-                                 ORACLE_NEW)
-        check_cluster_mode(label, st, handoff)
+        mode_prompts = shared if share or label == "peer spill" else handoff
+        if label == "peer spill":
+            tokens, st = cluster_run(
+                f"float32 {label}", cfg, params, dev, kw,
+                warm[:CLUSTER_PREFIX + PS // 2], mode_prompts, ORACLE_NEW,
+                engine_kw=PEER_SPILL_ENGINE, warm_new=1,
+                after_warm=park_prefix_page)
+            assert st["peer_spilled_pages"] == st["peer_restored_pages"] \
+                == 1, st
+            assert all(st["cached_tokens"][i] == CLUSTER_PREFIX
+                       for i, inst in enumerate(st["instances"])
+                       if inst == 0), st
+        else:
+            tokens, st = cluster_run(f"float32 {label}", cfg, params, dev,
+                                     kw, warm if share else None,
+                                     mode_prompts, ORACLE_NEW)
+            check_cluster_mode(label, st, handoff)
         compared = stops = 0
         for prompt, got in zip(mode_prompts, tokens):
             want = single[tuple(prompt)]
@@ -1474,7 +1820,12 @@ def cluster_gate(dev, seed: int):
                                      near_tie_stops=stops,
                                      leases_granted=st["leases_granted"],
                                      pages_borrowed=st["pages_borrowed"],
-                                     partial_launches=st["partial_launches"])
+                                     partial_launches=st["partial_launches"],
+                                     peer_spilled_pages=st[
+                                         "peer_spilled_pages"],
+                                     peer_restored_pages=st[
+                                         "peer_restored_pages"],
+                                     ledger=st["ledger"])
         log(f"cluster gate, {label}: {compared}/{total} float32 tokens equal "
             f"to the single engine's, {stops} near-tie stops")
     del params
@@ -2050,11 +2401,14 @@ def main() -> int:
     dense = dense_phases(dev, seed=10)
     mla = mla_phases(dev, seed=11)
     cluster = dense["cluster"]
+    host_tiers = [slice1["host_tier"], dense["host_tier"]]
     paged, paged_shapes = timing_phase(
-        dev, seed=2, launches=serve["launches"] + cluster["launches"])
+        dev, seed=2, launches=serve["launches"] + cluster["launches"]
+        + sum(h["launches"] for h in host_tiers))
     flash, flash_shapes = flash_timing(
         dev, seed=5,
-        launches=serve["prefill_launches"] + cluster["prefill_launches"])
+        launches=serve["prefill_launches"] + cluster["prefill_launches"]
+        + sum(h["prefill_launches"] for h in host_tiers))
     ssd, ssd_shapes = ssd_timing(dev, seed=6, launches=mamba["launches"])
     served = dict(dense["serve"], **{MOE_ARCH: moe["serve"],
                                      MLA_ARCH: mla["serve"]})
@@ -2097,6 +2451,19 @@ def main() -> int:
             f"{st['peak_gib']:.2f} GiB")
     log(f"cluster phase: {cluster['seconds']:.1f} s for the four modes; "
         f"float32 gate {cluster['gate']['seconds']:.1f} s")
+    for label, st in dense["host_tier"]["modes"].items():
+        rates = st["movers"] or {}
+        log(f"OPT host tier, {label} on {card}: {st['tokens_per_s']:.1f} "
+            f"tokens/s, mean TTFT {st['ttft_mean_s'] * 1e3:.1f} ms, max "
+            f"{st['ttft_max_s'] * 1e3:.1f} ms, {st['preemptions']} "
+            f"preemptions, {st['swapped_out']} swap-outs, "
+            f"{st['swapped_in']} swap-ins, {st['issues']} issues, "
+            f"{st['cancels']} cancels, max_memory_allocated "
+            f"{st['peak_gib']:.2f} GiB" + "".join(
+                f", {way} {r['gb_per_s']:.1f} GB/s" for way, r in
+                rates.items() if r["ms"]))
+    log(f"host tier phase (danube float32): "
+        f"{slice1['host_tier']['seconds']:.1f} s")
     log(f"mamba2 phase on {card}: prefill {mamba['prefill_ms']:.1f} ms "
         f"for {MAMBA_BATCH} x {MAMBA_PROMPT} tokens, decode "
         f"{mamba['decode_tokens_per_s']:.1f} tokens/s")

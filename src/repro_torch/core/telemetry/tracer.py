@@ -6,7 +6,7 @@ eviction — and post-hoc aggregates (``ServiceStats``) cannot explain a P99
 stall or a preemption storm. The :class:`Tracer` records those decisions as
 **typed events in a ring buffer**, cheap enough to leave on in the
 virtual-clock simulator and exportable to Chrome/Perfetto trace-event JSON
-(an exporter comes with a later slice of the port).
+(``repro_torch.core.telemetry.export``).
 
 Design constraints:
 

@@ -13,12 +13,17 @@ the CPU.
       --instances 2 --prefix-cache --prefix-share --share-mode zero_copy
   PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-opt-13b \
       --roles 1p1d --handoff-mode zero_copy
+  PYTHONPATH=src python -m repro_torch.launch.serve --pages 64 \
+      --host-pages 128 --swap-mode swap --speculative-swap --trace t.json
 
 The default is h2o-danube-1.8b at full width with random weights from
 ``--seed``; ``--reduced`` serves its smoke config. Zero-copy modes need a
-config without a sliding window (danube's is 4096 tokens). The simulator
-backend, host swap and trace export come with later slices of the port,
-and so do their flags.
+config without a sliding window (danube's is 4096 tokens). ``--host-pages``
+gives each engine a pinned host tier for swap-to-host preemption
+(``--swap-mode``, ``--victim-policy``, ``--speculative-swap``) and
+prefix-cache spill (``--cache-spill-pages``); ``--trace`` and
+``--metrics-csv`` turn telemetry on and export it after the run. The
+simulator backend and its flags come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from repro_torch.bridge import init_params
 from repro_torch.configs import ARCH_IDS, get_config, smoke_config
 from repro_torch.core.distkv.netmodel import NetworkModel
 from repro_torch.core.scheduling import CHUNK_POLICIES
+from repro_torch.core.scheduling.iteration import SWAP_MODES, VICTIM_POLICIES
 from repro_torch.device import resolve_device
 from repro_torch.serving.api import LLMService, SamplingParams
 from repro_torch.serving.disagg import HANDOFF_MODES, parse_role_spec
@@ -43,7 +49,12 @@ def build_instance(args, cfg, params, device) -> PagedEngine:
     return PagedEngine(cfg, params, EngineConfig(
         num_pages=args.pages, page_size=args.page_size,
         max_slots=args.slots, enable_prefix_cache=args.prefix_cache,
-        chunk_policy=args.chunk_policy), device=device)
+        chunk_policy=args.chunk_policy,
+        enable_telemetry=bool(args.trace or args.metrics_csv),
+        host_pages=args.host_pages, swap_mode=args.swap_mode,
+        victim_policy=args.victim_policy,
+        speculative_swap=args.speculative_swap,
+        cache_spill_pages=args.cache_spill_pages), device=device)
 
 
 def build_netmodel(args):
@@ -132,6 +143,32 @@ def build_parser() -> argparse.ArgumentParser:
                          "optimal), monolithic (whole prompt in one "
                          "iteration next to the decodes), or solo (legacy: "
                          "over-budget prompts wait for an idle engine)")
+    ap.add_argument("--host-pages", type=int, default=0,
+                    help="host (CPU) KV pages backing swap-to-host "
+                         "preemption and prefix-cache spill, pinned on the "
+                         "card's engines (0 = no host tier, preemption "
+                         "always recomputes)")
+    ap.add_argument("--swap-mode", default="sacrifice", choices=SWAP_MODES,
+                    help="what preemption does to a victim's computed KV: "
+                         "sacrifice (free + re-prefill later), swap (move "
+                         "to host pages, resume without re-prefill), or "
+                         "auto (per-victim cost decision)")
+    ap.add_argument("--victim-policy", default="lifo",
+                    choices=VICTIM_POLICIES,
+                    help="which running request is preempted/swapped under "
+                         "memory pressure: lifo (newest), fifo (oldest), "
+                         "lru (least recently scheduled), or cost (cheapest "
+                         "modeled eviction per freed page)")
+    ap.add_argument("--speculative-swap", action="store_true",
+                    help="issue decode swap-outs one iteration early when "
+                         "free pages trend under the decodes' growth, the "
+                         "copy overlapping that iteration's compute, and "
+                         "cancel if pressure recedes")
+    ap.add_argument("--cache-spill-pages", type=int, default=0,
+                    help="host pages the prefix cache may use to spill "
+                         "cold cached prefixes instead of evicting them "
+                         "(bounded LRU; needs --host-pages and "
+                         "--prefix-cache)")
     ap.add_argument("--instances", type=int, default=1,
                     help="serving instances behind the cluster router "
                          "(1 = no router)")
@@ -168,6 +205,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "time as net_time; default: no network "
                          "accounting, except share-mode auto which needs "
                          "the model)")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="enable telemetry and export a Chrome/Perfetto "
+                         "trace-event JSON (open in ui.perfetto.dev or "
+                         "chrome://tracing) after the run")
+    ap.add_argument("--metrics-csv", metavar="PATH", default=None,
+                    help="enable telemetry and dump per-iteration metric "
+                         "timelines (one row per instance-iteration) as "
+                         "CSV after the run")
     return ap
 
 
@@ -216,6 +261,12 @@ def main(argv=None):
               f"(chunk policy: {args.chunk_policy})")
     if stats.prefix_hit_rate is not None:
         print(f"prefix-cache hit-rate {stats.prefix_hit_rate:.1%}")
+    n_so = sum(k.swapped_out for k in kids)
+    n_si = sum(k.swapped_in for k in kids)
+    if n_so or n_si:
+        print(f"host swap: {n_so} swap-outs, {n_si} swap-ins "
+              f"(mode: {args.swap_mode}, victims: {args.victim_policy}, "
+              f"{args.host_pages} host pages)")
     if getattr(backend, "pages_borrowed", 0):
         print(f"zero-copy: {backend.leases_granted} leases, "
               f"{backend.pages_borrowed} pages served remotely "
@@ -235,6 +286,13 @@ def main(argv=None):
                          f"{row['adopted_pages']} adopted pages")
             print(f"  instance {i}: {row['requests']} reqs, "
                   f"{row['iterations']} iters{extra}")
+    if args.trace:
+        n = svc.export_trace(args.trace)
+        print(f"wrote {n} trace events to {args.trace} "
+              f"(open in https://ui.perfetto.dev)")
+    if args.metrics_csv:
+        n = svc.export_metrics_csv(args.metrics_csv)
+        print(f"wrote {n} metric rows to {args.metrics_csv}")
     return stats
 
 

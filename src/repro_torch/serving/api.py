@@ -532,6 +532,20 @@ class LLMService:
         tr = getattr(self.backend, "trace", None)
         return tr.events() if tr is not None else []
 
+    def export_trace(self, path: str) -> int:
+        """Write the backend's trace as Chrome/Perfetto trace-event JSON
+        (open in https://ui.perfetto.dev). Returns the event count."""
+        from repro_torch.core.telemetry import export_chrome_trace
+        events = self.trace_events()
+        export_chrome_trace(events, path)
+        return len(events)
+
+    def export_metrics_csv(self, path: str) -> int:
+        """Write per-iteration metric timelines as CSV (one row per
+        instance-iteration). Returns the row count."""
+        from repro_torch.core.telemetry import export_metrics_csv
+        return export_metrics_csv(self.metrics_timelines(), path)
+
 
 def _metrics_of(req: Request) -> RequestMetrics:
     ttft = None if req.first_token_time is None else \

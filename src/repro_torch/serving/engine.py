@@ -79,11 +79,38 @@ allocator's refcount, and every writer of a shared page copies it first
 (COW), so reading the creditor's pools in place is safe although the
 port's pools change in place.
 
+**Tiered KV memory** (``EngineConfig.host_pages > 0``): one host pool per
+device pool, ``host_pages`` pages in the pool's dtype, allocated once and
+pinned on a CUDA engine (it raises if pinning fails; it never falls back
+to pageable memory). The host pools are page-major, ``(H, L, ps,
+*token_shape)``, so one host page is one contiguous slab. The scheduler
+moves pages through the engine's movers (``repro/serving/engine.py:
+1008-1063``): a preemption victim swaps out to host pages and back in
+instead of recomputing (``swap_mode``, ``victim_policy``), a speculative
+swap-out is issued one iteration early and completed or cancelled at the
+next (``speculative_swap``), and cold prefix-cache pages spill to host
+pages within ``cache_spill_pages``. Every mover gathers or scatters the
+pages on the card through one contiguous page-major buffer per pool and
+copies it to or from the pinned pools with ``non_blocking`` copies, so
+the host never waits for a mover. Because the port's pools change in
+place, each copy is ordered by stream: a swap-out, swap-in or spill runs
+on the current stream, ahead of every later write in that iteration (a
+COW copy, a chunk's scatter, a decode write, a swap-in landing on the
+pages a swap-out just freed) and behind every earlier one; a host page
+freed by a swap-in and handed to a swap-out in the same ``schedule()`` is
+written after the swap-in has read it. A speculative swap-out's copy
+really is in flight across an iteration: it runs on a side stream after
+an event of the current stream (so it sees the pages' last writes), and
+the next ``step()`` makes the current stream wait for it before
+``schedule()`` completes or cancels it and hands its pages on. The
+reference's pools are immutable, so it defers that copy to the complete
+half instead; the pages are not written in between, so both give the same
+bytes.
+
 The engine implements :class:`~repro_torch.serving.api.ServingBackend`;
 drive it through :class:`~repro_torch.serving.api.LLMService`. Best-of-n
 requests (``SamplingParams.n > 1``) COW-fork the parent's block table right
-after its prefill. The host swap and spill tiers (and their
-``EngineConfig`` knobs) come with a later slice of the port.
+after its prefill.
 """
 
 from __future__ import annotations
@@ -137,9 +164,30 @@ class EngineConfig:
     # radix-tree prefix KV cache: share prompt pages across requests and
     # prefill only the uncached suffix
     enable_prefix_cache: bool = False
+    # drop a request after this many preemptions (finish_reason
+    # "preempted-dropped"); None = recompute forever
+    max_preemptions: Optional[int] = None
     # chunked-prefill budget policy: "decode_first", "prefill_first",
     # "monolithic" or "solo" (see core.scheduling.iteration)
     chunk_policy: str = "decode_first"
+    # host swap tier: host-memory pages a preemption victim's KV can move
+    # to (0 = disabled, classic sacrifice-and-recompute). With pages
+    # available, swap_mode ("sacrifice" | "swap" | "auto") and
+    # victim_policy ("lifo" | "fifo" | "lru" | "cost") pick who loses
+    # device pages and whether their KV survives on host — see
+    # core.scheduling.iteration.SWAP_MODES / VICTIM_POLICIES
+    host_pages: int = 0
+    swap_mode: str = "sacrifice"
+    victim_policy: str = "lifo"
+    # speculative swap-outs: the scheduler issues a decode victim's
+    # swap-out one iteration early when free pages trend under the running
+    # decodes' growth (issue/complete halves behind the allocator's pending
+    # ledger), cancelling if pressure recedes before it resolves
+    speculative_swap: bool = False
+    # prefix-cache spill: cold radix pages move to host pages (bounded LRU
+    # budget, drawn from the same host_pages pool) instead of dying — a
+    # later match restores them instead of recomputing
+    cache_spill_pages: int = 0
     # structured event tracing + per-iteration metric timelines
     enable_telemetry: bool = False
 
@@ -178,13 +226,28 @@ class PagedEngine:
                                    device=self.device)
         self.v_pages = torch.zeros(shape_b, dtype=cfg.torch_dtype,
                                    device=self.device)
-        self.allocator = BlockAllocator(P, ps, layout=self.kv_layout)
-        self.prefix_cache = PrefixCache(self.allocator) \
+        self.allocator = BlockAllocator(P, ps, host_blocks=ecfg.host_pages,
+                                        layout=self.kv_layout)
+        self.prefix_cache = PrefixCache(
+            self.allocator, spill_budget=ecfg.cache_spill_pages) \
             if ecfg.enable_prefix_cache else None
         self.scheduler = IterationScheduler(
             self.allocator, max_running=ecfg.max_slots,
             max_tokens_per_iter=ecfg.max_tokens_per_iter,
-            prefix_cache=self.prefix_cache, chunk_policy=ecfg.chunk_policy)
+            prefix_cache=self.prefix_cache,
+            max_preemptions=ecfg.max_preemptions,
+            chunk_policy=ecfg.chunk_policy,
+            swap_mode=ecfg.swap_mode, victim_policy=ecfg.victim_policy,
+            speculative_swap=ecfg.speculative_swap)
+        # host swap tier: the host pools, the side stream of speculative
+        # swap-outs and the events of those still in flight
+        self.h_k_pages = self.h_v_pages = None
+        self._swap_stream = None
+        self._in_flight: List[torch.cuda.Event] = []
+        if ecfg.host_pages:
+            self._init_host_tier(ecfg.host_pages)
+        self.swapped_out = 0
+        self.swapped_in = 0
         # per-sequence context cap: the trained limit, within the pages
         self.max_context_len = min(cfg.max_seq_len or P * ps, P * ps)
         self.slots: Dict[int, int] = {}  # request_id -> slot
@@ -544,11 +607,24 @@ class PagedEngine:
             tr.now = now
             tr.iteration = self.iterations
             t_wall0 = time.monotonic()
+        # a speculative swap-out issued last iteration resolves in this
+        # schedule(): its pages may be handed on only after its copy
+        self._join_swaps()
         plan = self.scheduler.schedule()
         self.preemptions += len(plan.preempted)
-        for req in plan.preempted:
+        # the swap copies already ran in the scheduler's hooks; here only
+        # the decode slots move: a request swapped out (or issued) gives its
+        # slot up, one swapped in (or cancelled) claims one and re-arms its
+        # input token, the last sampled one, whose KV was never written
+        for req in plan.preempted + [r for r, _ in plan.swap_out
+                                     + plan.swap_issue]:
             if req.request_id in self.slots:
                 self.free_slots.append(self.slots.pop(req.request_id))
+        for req, _ in plan.swap_in + plan.swap_cancel:
+            slot = self.free_slots.pop()
+            self.slots[req.request_id] = slot
+            if req.output:
+                self.last_token[slot] = req.output[-1]
         if plan.empty:
             # a self-preempted request can leave an otherwise-empty plan:
             # run completion anyway (the scheduler's preemption budget)
@@ -661,12 +737,20 @@ class PagedEngine:
             m.gauge("running", len(self.scheduler.running))
             m.gauge("waiting", len(self.scheduler.waiting))
             m.gauge("net_time_s", self.net_time)
+            if self.allocator.num_host_blocks:
+                m.gauge("swapped_pages", self.allocator.swapped_pages)
+                m.gauge("swap_pending_pages",
+                        self.allocator.pending_out_pages)
             if self.prefix_cache is not None:
                 m.gauge("prefix_hit_rate", self.prefix_cache.hit_rate)
             m.count("tokens", plan.token_count())
             m.count("decode_tokens", len(plan.decode))
             m.count("prefill_tokens", sum(c.length for c in plan.chunks))
             m.count("preemptions", len(plan.preempted))
+            m.count("swap_outs", len(plan.swap_out) + len(plan.swap_complete))
+            m.count("swap_ins", len(plan.swap_in))
+            m.count("swap_issues", len(plan.swap_issue))
+            m.count("swap_cancels", len(plan.swap_cancel))
             m.observe("iteration_time_s", dur)
             m.snapshot(now, self.iterations)
         self.iterations += 1
@@ -697,6 +781,141 @@ class PagedEngine:
                 # on it still reuses the parent's prompt pages)
                 self.scheduler.add_request(child)
         return forked
+
+    # -- host swap tier -----------------------------------------------------------
+
+    def _init_host_tier(self, n: int) -> None:
+        """The host pools and the scheduler's swap and spill hooks. Each
+        host pool holds ``n`` pages of its device pool, page-major ``(n, L,
+        ps, *token_shape)``, pinned on a CUDA engine. Every page is written
+        by a swap-out or spill before anything reads it, so the pools are
+        not zeroed."""
+        pin = self.device.type == "cuda"
+        pools = []
+        for pool in (self.k_pages, self.v_pages):
+            host = torch.empty((n, pool.shape[0], *pool.shape[2:]),
+                               dtype=pool.dtype, pin_memory=pin)
+            if pin and not host.is_pinned():
+                raise RuntimeError("the host KV pool could not be pinned")
+            pools.append(host)
+        self.h_k_pages, self.h_v_pages = pools
+        if pin:
+            self._swap_stream = torch.cuda.Stream(self.device)
+        sch = self.scheduler
+        sch.swap_out_hook = self._swap_out_copy
+        sch.swap_in_hook = self._swap_in_copy
+        sch.swap_issue_hook = self._swap_out_issue
+        sch.swap_complete_hook = self._swap_out_complete
+        sch.swap_cancel_hook = self._swap_out_cancel
+        if self.prefix_cache is not None:
+            self.prefix_cache.spill_out_fn = self._pages_out
+            self.prefix_cache.spill_in_fn = self._pages_in
+
+    def host_page(self, h: int):
+        """Host page ``h`` of both pools, ``(L, ps, *token_shape)`` each (the
+        JAX engine's ``h_k_pages[:, h]``), once every copy queued so far
+        has landed."""
+        if self.device.type == "cuda":
+            self._join_swaps()
+            torch.cuda.current_stream(self.device).synchronize()
+        return self.h_k_pages[h], self.h_v_pages[h]
+
+    def _index(self, ids) -> torch.Tensor:
+        """``ids`` as an int64 index on the engine's device; on a CUDA
+        engine staged through pinned memory, so the host does not wait for
+        the copy (it runs on the current stream)."""
+        t = torch.tensor(ids, dtype=torch.int64)
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    @staticmethod
+    def _runs(hosts):
+        """``(i, h, k)``: positions ``[i, i + k)`` of ``hosts`` hold the
+        consecutive host pages ``[h, h + k)``; one copy moves each run."""
+        i = 0
+        while i < len(hosts):
+            k = 1
+            while i + k < len(hosts) and hosts[i + k] == hosts[i] + k:
+                k += 1
+            yield i, hosts[i], k
+            i += k
+
+    def _pages_out(self, pairs) -> None:
+        """Device -> host: ``(device, host)`` page pairs of both pools. The
+        pages are gathered page-major into one contiguous buffer on the
+        device, whose runs are copied into the host pools. Queued on the
+        current stream; nothing waits."""
+        devs = self._index([d for d, _ in pairs])
+        hosts = [h for _, h in pairs]
+        for pool, hpool in ((self.k_pages, self.h_k_pages),
+                            (self.v_pages, self.h_v_pages)):
+            buf = pool.movedim(1, 0).index_select(0, devs).contiguous()
+            for i, h, k in self._runs(hosts):
+                hpool[h:h + k].copy_(buf[i:i + k], non_blocking=True)
+
+    def _pages_in(self, pairs) -> None:
+        """Host -> device: ``(host, device)`` page pairs of both pools,
+        through one contiguous buffer on the device per pool, scattered into
+        the pool's pages. Queued on the current stream; nothing waits."""
+        hosts = [h for h, _ in pairs]
+        devs = self._index([d for _, d in pairs])
+        for pool, hpool in ((self.k_pages, self.h_k_pages),
+                            (self.v_pages, self.h_v_pages)):
+            buf = torch.empty((len(pairs), *hpool.shape[1:]),
+                              dtype=pool.dtype, device=self.device)
+            for i, h, k in self._runs(hosts):
+                buf[i:i + k].copy_(hpool[h:h + k], non_blocking=True)
+            pool.index_copy_(1, devs, buf.movedim(0, 1))
+
+    def _join_swaps(self) -> None:
+        """Make the current stream wait for every speculative swap-out copy
+        still in flight on the side stream."""
+        if self._in_flight:
+            stream = torch.cuda.current_stream(self.device)
+            for event in self._in_flight:
+                stream.wait_event(event)
+            self._in_flight.clear()
+
+    def _swap_out_copy(self, pairs) -> None:
+        """One table's swap-out (scheduler hook, called before the freed
+        device pages can be reallocated): queued ahead of every later write
+        in stream order."""
+        self._pages_out(pairs)
+        self.swapped_out += 1
+
+    def _swap_out_issue(self, pairs) -> None:
+        """Issue half of a speculative swap-out. The source pages stay
+        allocated in the allocator's pending ledger and nothing writes them
+        until the swap resolves. On a CUDA engine the copy starts now on the
+        side stream, after an event of the current stream (it sees the
+        pages' last writes, and lands on host pages only after a swap-in
+        queued earlier has read them), and runs under this iteration's
+        compute; the next ``step()`` joins it. On the CPU it is made now."""
+        if self._swap_stream is None:
+            self._pages_out(pairs)
+            return
+        ready = torch.cuda.current_stream(self.device).record_event()
+        with torch.cuda.stream(self._swap_stream):
+            self._swap_stream.wait_event(ready)
+            self._pages_out(pairs)
+            self._in_flight.append(self._swap_stream.record_event())
+
+    def _swap_out_complete(self, pairs) -> None:
+        """Complete half, called before the allocator frees the device
+        pages: the copy was issued a step ago, and this step joined it
+        before ``schedule()``. It counts as a swap-out now."""
+        self.swapped_out += 1
+
+    def _swap_out_cancel(self, pairs) -> None:
+        """Pressure receded before the swap resolved: the pages never left
+        the device (the allocator returns the host pages; the copy made to
+        them was joined before ``schedule()``)."""
+
+    def _swap_in_copy(self, pairs) -> None:
+        """Host -> device onto the freshly allocated pages."""
+        self._pages_in(pairs)
+        self.swapped_in += 1
 
     # -- zero-copy leases (borrowed rBlocks) -------------------------------------
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels (paged_attention, flash_prefill, ssd_scan)
-against their plain PyTorch versions, on the card. Every test here needs a
-CUDA device and skips without one (a kernel has no CPU mode). This file
-imports no JAX, so it runs on a machine with the card:
+against their plain PyTorch versions, and the engine's host-tier movers
+(pinned host pools, stream order, no host synchronisation), on the card.
+Every test here needs a CUDA device and skips without one (a kernel has no
+CPU mode). This file imports no JAX, so it runs on a machine with the
+card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
@@ -860,3 +862,183 @@ def test_cuda_mla_zero_copy_engine_matches_cpu_engine(cuda):
     assert sum(e.leased_decode_steps for e in runs[str(cuda)][1]) > 0
     assert _assert_tokens_near(cfg, params, prompts, runs["cpu"][0],
                                runs[str(cuda)][0]) >= 30
+
+
+# -- the host tier: swap and spill movers -------------------------------------------
+
+def _mover_engine(dev, dtype=torch.bfloat16, host_pages=48):
+    """A PagedEngine at h2o-danube-1.8b's pool widths (24 layers, 8 KV
+    heads of 80, pages of 16) with a host tier, its pools filled from a
+    seed. The movers read no weights, so the engine gets none."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"),
+                              dtype={torch.bfloat16: "bfloat16",
+                                     torch.float32: "float32"}[dtype])
+    params = {"embed": {"table": torch.empty(0, device=dev)}}
+    engine = PagedEngine(cfg, params, EngineConfig(
+        num_pages=64, page_size=16, host_pages=host_pages), device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for pool in (engine.k_pages, engine.v_pages):
+        pool.copy_(torch.randn(pool.shape, generator=g, device=dev))
+    return engine
+
+
+def _pages(engine, dev_pages):
+    return [pool[:, dev_pages].clone() for pool in (engine.k_pages,
+                                                    engine.v_pages)]
+
+
+def _host(engine, host_pages):
+    return [torch.stack([engine.host_page(h)[i] for h in host_pages], 1)
+            for i in (0, 1)]
+
+
+@pytest.mark.gpu
+def test_cuda_swap_movers_round_trip_bit_exact(cuda):
+    """bf16 pages out to pinned host pages (runs of consecutive host
+    pages and gaps) and back onto other device pages, by the swap and the
+    spill movers, bit for bit; no mover synchronises the host (the sync
+    debug mode raises on any synchronising call)."""
+    engine = _mover_engine(cuda)
+    assert engine.h_k_pages.is_pinned() and engine.h_v_pages.is_pinned()
+    assert engine.h_k_pages.shape == (48, 24, 16, 8, 80)
+    src = [3, 4, 9, 20, 21, 22]
+    hosts = [7, 8, 9, 30, 2, 3]
+    dst = [40, 41, 50, 12, 13, 60]
+    want = _pages(engine, src)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine._swap_out_copy(list(zip(src[:4], hosts[:4])))
+        engine._pages_out(list(zip(src[4:], hosts[4:])))  # spill
+        engine._swap_in_copy(list(zip(hosts[:4], dst[:4])))
+        engine._pages_in(list(zip(hosts[4:], dst[4:])))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert engine.swapped_out == engine.swapped_in == 1
+    for got, w in zip(_host(engine, hosts), want):
+        assert torch.equal(got.to(cuda), w)
+    for got, w in zip(_pages(engine, dst), want):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.gpu
+def test_cuda_swap_out_lands_before_same_iteration_writes(cuda):
+    """What ``schedule()`` and the step may do to pages right after a
+    swap-out, queued behind a busy stream: the freed device pages are
+    written in place (a chunk's scatter) and a swap-in lands on them, and
+    a host page a swap-in just read is reused by a swap-out. The host keeps
+    the pre-write contents, and the swap-in reads the host page before the
+    swap-out overwrites it."""
+    engine = _mover_engine(cuda)
+    victim, host = [5, 6, 7], [10, 11, 12]
+    before = _pages(engine, victim)
+    # host page 20 holds page 30's contents: the swap-in's source
+    engine._pages_out([(30, 20)])
+    parked = _pages(engine, [30])
+    # no host wait after the sleep: the index is on the card already and
+    # the fill's value is a kernel argument
+    idx = torch.tensor(victim, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # the stream is busy ~0.1 s
+    engine._swap_out_copy(list(zip(victim, host)))
+    for pool in (engine.k_pages, engine.v_pages):
+        pool.index_fill_(1, idx, 7.0)  # reallocated and written
+    engine._swap_in_copy([(20, 6)])  # lands on a page just freed
+    engine._swap_out_copy([(40, 20)])  # reuses the host page just read
+    torch.cuda.synchronize()
+    for got, w in zip(_host(engine, host), before):
+        assert torch.equal(got.to(cuda), w)
+    for got, w in zip(_pages(engine, [6]), parked):
+        assert torch.equal(got, w)
+    for got, w in zip(_host(engine, [20]), _pages(engine, [40])):
+        assert torch.equal(got.to(cuda), w)
+
+
+@pytest.mark.gpu
+def test_cuda_speculative_swap_out_is_in_flight(cuda):
+    """A speculative issue copies on the side stream after the pages' last
+    write on the current stream, and is still in flight when the issue
+    returns (the current stream is busy); once the step joins it, writes to
+    the pages no longer reach the host copy. Neither half synchronises the
+    host."""
+    engine = _mover_engine(cuda)
+    pages, host = [8, 9, 10, 11], [0, 1, 2, 3]
+    idx = torch.tensor(pages, device=cuda)  # as above
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    for pool in (engine.k_pages, engine.v_pages):
+        pool.index_fill_(1, idx, 3.0)  # the victim's last write
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine._swap_out_issue(list(zip(pages, host)))
+        assert len(engine._in_flight) == 1
+        assert not engine._in_flight[0].query(), "the copy did not wait"
+        engine._join_swaps()
+        engine._swap_out_complete(list(zip(pages, host)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for pool in (engine.k_pages, engine.v_pages):
+        pool.index_fill_(1, idx, -1.0)  # the next owner, after the complete
+    torch.cuda.synchronize()
+    assert engine.swapped_out == 1 and not engine._in_flight
+    for got in _host(engine, host):
+        assert bool((got == 3.0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [dict(swap_mode="swap"),
+                                  dict(swap_mode="swap",
+                                       speculative_swap=True)],
+                         ids=["swap", "speculative"])
+def test_cuda_swap_engine_matches_cpu_engine(cuda, mode):
+    """Smoke h2o-danube-1.8b without its window, float32, under the
+    reference's crunch (8 pages of 8, 2 slots, 16 host pages): the card
+    swaps and resumes without recomputing, and its greedy tokens equal
+    the CPU engine's but at a near-tie of ``Model.forward`` (2**-7 of the
+    largest |logit|; comparing that request stops there)."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.scheduling.request import Request
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+
+    cfg = dataclasses.replace(smoke_config("h2o-danube-1.8b"),
+                              sliding_window=None, dtype="float32",
+                              logits_fp32=True)
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, 17).tolist()
+               for _ in range(2)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        engine = PagedEngine(cfg, _to(params, dev), EngineConfig(
+            num_pages=8, page_size=8, max_slots=2, host_pages=16, **mode),
+            device=dev)
+        reqs = [Request(i, 0.0, list(p), max_new_tokens=20)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            engine.add_request(r)
+        engine.run_to_completion()
+        assert engine.swapped_out == engine.swapped_in > 0
+        assert engine.preemptions == 0
+        a = engine.allocator
+        assert a.num_free == a.num_blocks and a.swapped_pages == 0
+        assert a.pending_out_pages == 0
+        runs[str(dev)] = [r.full_output for r in reqs]
+    model = Model(cfg)
+    for prompt, a, b in zip(prompts, runs["cpu"], runs[str(cuda)]):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x == y:
+                continue
+            logits, _ = model.forward(params, torch.tensor([prompt + a[:i]]))
+            last = logits[0, -1, :cfg.vocab_size]
+            top = torch.topk(last, 2).values
+            assert top[0] - top[1] < 2.0 ** -7 * last.abs().max(), (i, x, y)
+            break
