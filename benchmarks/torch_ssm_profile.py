@@ -1,12 +1,16 @@
-"""Where full-width mamba2-1.3b's prefill and decode steps spend their time
-on the GPU, in the PyTorch port.
+"""Where full-width mamba2-1.3b's (or hymba-1.5b's) prefill and decode
+steps spend their time on the GPU, in the PyTorch port.
 
     python3 benchmarks/torch_ssm_profile.py [--steps 8]
+    python3 benchmarks/torch_ssm_profile.py --arch hymba-1.5b
 
-Needs one CUDA card. Builds the port's kernels, puts full-width
-mamba2-1.3b (48 layers, random weights from a seed, bfloat16) on the card
-and runs ``chip_smoke.py``'s mamba2 traffic: ``Model.prefill`` of 4 prompts
-x 1024 tokens, then ``--steps`` greedy ``decode_step``s. Three passes: a
+Needs one CUDA card. Builds the port's kernels, puts the whole model
+(random weights from a seed, bfloat16) on the card and runs
+``chip_smoke.py``'s traffic for it: ``Model.prefill`` of 4 prompts x 1024
+tokens (mamba2) or 4 x 2048 (hymba: its prefill attention launches
+``flash_prefill`` once per layer and sequence, its SSM heads ``ssd_scan``
+once per layer), capacity prompt + ``--steps``, then ``--steps`` greedy
+``decode_step``s on the ring caches. Three passes: a
 warm-up (kernel loads, cuBLAS start-up), one timed without a profiler, and
 one under ``torch.profiler``, the prefill and the decode steps in separate
 profiler windows. Prints the card's name and power limit, the wall time of
@@ -34,7 +38,12 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import MAMBA_BATCH, MAMBA_PROMPT  # noqa: E402
+from chip_smoke import (HYMBA_BATCH, HYMBA_PROMPT, MAMBA_BATCH,  # noqa: E402
+                        MAMBA_PROMPT)
+
+# batch, prompt length and weight seed of chip_smoke.py's phase
+TRAFFIC = {"mamba2-1.3b": (MAMBA_BATCH, MAMBA_PROMPT, 3),
+           "hymba-1.5b": (HYMBA_BATCH, HYMBA_PROMPT, 12)}
 
 
 def run(model, params, toks, steps):
@@ -42,7 +51,8 @@ def run(model, params, toks, steps):
     the prefill and of each step (seconds, each ending in a synchronise)."""
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    logits, caches = model.prefill(params, toks)
+    logits, caches = model.prefill(params, toks,
+                                   seq_capacity=toks.shape[1] + steps)
     torch.cuda.synchronize()
     prefill_s = time.monotonic() - t0
     vocab = model.cfg.vocab_size
@@ -99,6 +109,7 @@ def show(title, s, unit):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--arch", choices=sorted(TRAFFIC), default="mamba2-1.3b")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_ssm_profile: no CUDA device", file=sys.stderr)
@@ -107,6 +118,7 @@ def main() -> int:
     from repro_torch.bridge import init_params
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models.transformer import Model
 
@@ -115,23 +127,28 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
     _build.build("ssd_scan")
+    _build.build("flash_prefill")
     dev = torch.device("cuda", 0)
-    cfg = get_config("mamba2-1.3b")  # full width, all 48 layers
-    params = init_params(cfg, seed=3, device=dev)
+    cfg = get_config(args.arch)  # full width and depth
+    batch, prompt, seed = TRAFFIC[args.arch]
+    attn_layers = cfg.num_layers if cfg.family == "hybrid" else 0
+    params = init_params(cfg, seed=seed, device=dev)
     model = Model(cfg)
-    toks = torch.as_tensor(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (MAMBA_BATCH, MAMBA_PROMPT)), device=dev)
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt)), device=dev)
 
     run(model, params, toks, args.steps)  # warm-up
     prefill_s, step_s = run(model, params, toks, args.steps)
-    launches = ssd_scan.launches
+    launches = (ssd_scan.launches, flash_prefill.launches)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof_prefill:
-        _, caches = model.prefill(params, toks)
+        _, caches = model.prefill(params, toks,
+                                  seq_capacity=prompt + args.steps)
         torch.cuda.synchronize()
-    assert ssd_scan.launches == launches + cfg.num_layers
+    assert (ssd_scan.launches, flash_prefill.launches) == (
+        launches[0] + cfg.num_layers, launches[1] + attn_layers * batch)
     tok = toks[:, -1]
-    pos = torch.full((MAMBA_BATCH,), MAMBA_PROMPT, device=dev)
+    pos = torch.full((batch,), prompt, device=dev)
     with profile(activities=acts) as prof_decode:
         for i in range(args.steps):
             logits, caches = model.decode_step(params, tok[:, None], pos + i,
@@ -143,14 +160,14 @@ def main() -> int:
     dec = summary(kernel_table(prof_decode), sum(step_s), per=args.steps)
     dec["wall_ms"] /= args.steps
     dec["device_busy_ms"] /= args.steps
-    out = dict(card=card, batch=MAMBA_BATCH, prompt=MAMBA_PROMPT,
+    out = dict(card=card, arch=args.arch, batch=batch, prompt=prompt,
                decode_steps=args.steps, prefill=pre, decode_step=dec,
                decode_step_wall_ms=[s * 1e3 for s in step_s])
     print(f"card: {card}")
     if not pre["device_busy_ms"]:
         print("the profiler recorded no device time on this machine")
-    show(f"prefill of {MAMBA_BATCH} x {MAMBA_PROMPT} tokens", pre, "")
-    show(f"decode step of {MAMBA_BATCH} sequences (mean of {args.steps})",
+    show(f"{args.arch} prefill of {batch} x {prompt} tokens", pre, "")
+    show(f"decode step of {batch} sequences (mean of {args.steps})",
          dec, "per step")
     print(json.dumps(out))
     return 0

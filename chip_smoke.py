@@ -67,7 +67,24 @@ or the JAX package) and:
    tokens/s. Then a float32 oracle: for 2 prompts x 512 tokens, the
    prefill's last logits and final SSM states (through the kernel) against
    stepping ``decode_step`` token by token from ``init_cache`` (no kernel),
-   and the greedy tokens that follow from each;
+   and the greedy tokens that follow from each. Then the ring caches:
+   full-width hymba-1.5b, whole (32 layers: attention over 5 KV heads
+   (G 5, Dh 64) and 64 SSD heads of 50 side by side in every layer, a
+   1024-token window but in layers 0 and 16, bf16), ``Model.prefill`` of 4
+   prompts x 2048 tokens (``flash_prefill`` launched 32 x 4 times,
+   ``ssd_scan`` 32, ``paged_attention`` never), then 32 greedy
+   ``decode_step``s on its ring caches (the window rings wrap; no kernel);
+   prints the prefill time and tokens/s, the decode tokens/s and
+   ``max_memory_allocated``. Its float32 oracle at full width, 2 prompts x
+   1280 tokens: the kernel prefill's last logits against
+   ``Model.forward``, and against stepping ``decode_step`` token by token
+   from ``init_cache`` (last logits, every SSM state and conv tail, ring
+   K/V slot by slot), the first decode step against ``Model.forward`` over
+   2 x 1280 tokens, each within 1e-2 of its largest magnitude, and 16
+   greedy tokens from both paths' caches (equal but at a near-tie).
+   deepseek-v2-236b's latent ring at full width and 2 layers, float32:
+   ``Model.prefill`` and 16 greedy ``decode_step``s through ``mla_decode``
+   against ``Model.forward`` by the oracle phase's rule;
 8. MoE phases: llama4-scout-17b-a16e at full width (d 5120, 40 heads over
    8 KV heads, 16 experts of 8192 + 1 shared, top-1, capacity factor
    1.25), cut to 12 of its 48 layers, bf16, served as in the serve phase;
@@ -123,7 +140,11 @@ or the JAX package) and:
    and the least time the card could take (its bound), and prints them as
    one JSON line; ``flash_prefill``'s engine form is also timed at each of
    the kernel phase's chunk shapes, beside SDPA, one line each, and
-   ``ssd_scan`` at one 4096-token prompt beside its timing shape. The two
+   ``ssd_scan`` at one 4096-token prompt beside its timing shape. Both
+   kernels of hymba's prefill at its shape (``prefill_attention``: 4
+   launches over 4 x 2048 tokens, window 1024 and none, beside SDPA and
+   the contiguous entry's float32 body; ``ssd_scan`` at 64 heads of 50,
+   state 16): their entries' ``at_hymba``. The two
    attention kernels are also timed at llama4-scout's (G 5), granite's
    (G 48) and paper-opt-13b's (G 1, 40 heads) decode and chunk shapes,
    beside SDPA, one line each. The times
@@ -198,6 +219,14 @@ SSD_SHAPES = [(2, 128, 4, 16, 1, 8, 16), (2, 128, 4, 16, 2, 8, 32),
               (2, 1024, 64, 50, 1, 16, 256)]
 MAMBA_BATCH, MAMBA_PROMPT, MAMBA_NEW = 4, 1024, 32
 MAMBA_ORACLE_BATCH, MAMBA_ORACLE_PROMPT, MAMBA_ORACLE_NEW = 2, 512, 8
+# hymba-1.5b whole, through Model.prefill / decode_step: prompts past its
+# 1024-token window and a multiple of its 256-token SSM chunk; the float32
+# oracle's prompt is five chunks. The MLA ring: deepseek-v2's float32
+# oracle configuration, 2 prompts, greedy tokens through the latent ring
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_BATCH, HYMBA_PROMPT, HYMBA_NEW = 4, 2048, 32
+HYMBA_ORACLE_BATCH, HYMBA_ORACLE_PROMPT, HYMBA_ORACLE_NEW = 2, 1280, 16
+MLA_RING_PROMPT, MLA_RING_NEW = 300, 16
 # the float32 oracles' engine and depth (the full width is kept)
 ORACLE_ENGINE = dict(num_pages=256, page_size=PS, max_slots=4,
                      max_tokens_per_iter=512)
@@ -1876,14 +1905,15 @@ def mamba_phase(dev, seed: int):
         0, cfg.vocab_size, (MAMBA_BATCH, MAMBA_PROMPT)), device=dev)
     # warm-up at the timed shapes: the first calls load kernels and pick
     # GEMM algorithms
-    _, warm = model.prefill(params, toks)
+    cap = MAMBA_PROMPT + MAMBA_NEW  # an SSM segment ignores it
+    _, warm = model.prefill(params, toks, seq_capacity=cap)
     model.decode_step(params, toks[:, :1], toks[:, 0], warm)
     del warm
     torch.cuda.synchronize()
 
     ssd_scan.launches = 0  # read around this prefill alone
     t0 = time.monotonic()
-    logits, caches = model.prefill(params, toks)
+    logits, caches = model.prefill(params, toks, seq_capacity=cap)
     torch.cuda.synchronize()
     prefill_s = time.monotonic() - t0
     launches = ssd_scan.launches
@@ -1963,9 +1993,9 @@ def mamba_oracle(dev, seed: int):
     rng = np.random.default_rng(seed + 1)
     toks = torch.as_tensor(rng.integers(0, v, (b, s)), device=dev)
     before = ssd_scan.launches
-    lk, ck = model.prefill(params, toks)
+    lk, ck = model.prefill(params, toks, seq_capacity=s)
     assert ssd_scan.launches == before + cfg.num_layers
-    lr, cr = None, model.init_cache(b, device=dev)
+    lr, cr = None, model.init_cache(b, s, device=dev)
     launches = ssd_scan.launches
     for t in range(s):
         lr, cr = model.decode_step(params, toks[:, t:t + 1],
@@ -2016,6 +2046,474 @@ def mamba_oracle(dev, seed: int):
                 state_rel_err=state_err, conv_rel_err=conv_err,
                 compared=compared, total=total, near_tie_stops=near_ties,
                 min_gap_rel=min_gap)
+
+
+# -- ring caches: hymba-1.5b and the MLA latent ring --------------------------
+
+def launch_counts():
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return dict(flash_prefill=flash_prefill.launches,
+                paged_attention=paged_attention.launches,
+                ssd_scan=ssd_scan.launches)
+
+
+def reset_launch_counts():
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    flash_prefill.launches = paged_attention.launches = ssd_scan.launches = 0
+
+
+def hymba_phase(dev, seed: int):
+    """Full-width hymba-1.5b (32 layers: attention and SSM heads side by
+    side in every layer, window 1024 but layers 0 and 16), random weights
+    from a seed, bf16: ``Model.prefill`` of HYMBA_BATCH prompts x
+    HYMBA_PROMPT tokens (past the window: the window rings are seeded from
+    the last 1024 positions) with capacity HYMBA_PROMPT + HYMBA_NEW, then
+    HYMBA_NEW greedy ``decode_step``s (the window rings wrap). The launch
+    counts are read around the prefill alone: ``flash_prefill`` once per
+    layer and sequence (``prefill_attention``), ``ssd_scan`` once per
+    layer, ``paged_attention`` never; the decode launches no kernel. Every
+    logit and cache leaf must be finite. Then the float32 oracle
+    (``hymba_oracle``) and the MLA ring (``mla_ring_check``)."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import pad_vocab
+    from repro_torch.models.transformer import Model
+
+    cfg = get_config(HYMBA_ARCH)  # full width and depth, no cut
+    t_phase = t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    model = Model(cfg)
+    plan = [(s.n, s.attn_kind) for s in model.plan]
+    log(f"hymba phase: {cfg.arch_id} {cfg.num_layers}L d{cfg.d_model} "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV, window "
+        f"{cfg.sliding_window}, {cfg.ssm_heads} SSD heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, plan {plan}, "
+        f"{n_params / 1e9:.3f} B params {cfg.dtype} on the card in "
+        f"{time.monotonic() - t0:.1f}s")
+    b, s, new = HYMBA_BATCH, HYMBA_PROMPT, HYMBA_NEW
+    cap = s + new
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                           device=dev)
+    # warm-up at the timed shapes: the first calls load kernels and pick
+    # GEMM algorithms
+    _, warm = model.prefill(params, toks, seq_capacity=cap)
+    model.decode_step(params, toks[:, :1], toks[:, 0], warm)
+    del warm
+    torch.cuda.synchronize()
+
+    reset_launch_counts()  # read around this prefill alone
+    t0 = time.monotonic()
+    logits, caches = model.prefill(params, toks, seq_capacity=cap)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    launches = launch_counts()
+    want = dict(flash_prefill=cfg.num_layers * b, paged_attention=0,
+                ssd_scan=cfg.num_layers)
+    assert launches == want, f"prefill launches {launches}, want {want}"
+    assert logits.shape == (b, pad_vocab(cfg.vocab_size))
+    assert torch.isfinite(logits[:, :cfg.vocab_size].float()).all()
+    assert all(torch.isfinite(t.float()).all() for t in _leaves(caches)
+               if t.is_floating_point())
+
+    tok = logits[:, :cfg.vocab_size].argmax(-1)
+    pos = torch.full((b,), s, device=dev)
+    t0 = time.monotonic()
+    generated = []
+    for i in range(new):
+        logits, caches = model.decode_step(params, tok[:, None], pos + i,
+                                           caches)
+        tok = logits[:, :cfg.vocab_size].argmax(-1)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.monotonic() - t0
+    assert launch_counts() == want, "the ring decode launched a kernel"
+    gen = torch.stack(generated, 1)
+    assert ((gen >= 0) & (gen < cfg.vocab_size)).all()
+    assert torch.isfinite(logits[:, :cfg.vocab_size].float()).all()
+    assert all(torch.isfinite(t.float()).all() for t in _leaves(caches)
+               if t.is_floating_point())
+    # the window rings wrapped: they hold the last 1024 positions
+    for seg, c in zip(model.plan, caches):
+        kv_pos = c[0].pos
+        lo = cap - cfg.sliding_window if seg.attn_kind == "swa" else 0
+        assert int(kv_pos.min()) == lo and int(kv_pos.max()) == cap - 1, \
+            (seg, int(kv_pos.min()), int(kv_pos.max()))
+    prompt_tokens = b * s
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"hymba phase: prefill of {b} x {s} tokens in "
+        f"{prefill_s * 1e3:.1f} ms ({prompt_tokens / prefill_s:.0f} "
+        f"tokens/s); launches {launches}; {new} greedy decode steps in "
+        f"{decode_s * 1e3:.1f} ms ({b * new / decode_s:.1f} tokens/s); "
+        f"max_memory_allocated {peak_gib:.2f} GiB")
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    oracle = hymba_oracle(dev, seed + 1)
+    mla_ring = mla_ring_check(dev, seed + 2)
+    return dict(**phase_end("hymba phase", t_phase),
+                params=n_params, batch=b, prompt=s, capacity=cap,
+                prefill_ms=prefill_s * 1e3,
+                prefill_tokens_per_s=prompt_tokens / prefill_s,
+                decode_steps=new, decode_ms=decode_s * 1e3,
+                decode_tokens_per_s=b * new / decode_s,
+                measure_peak_gib=peak_gib, launches=launches,
+                oracle=oracle, mla_ring=mla_ring)
+
+
+def hymba_oracle(dev, seed: int):
+    """Float32 hymba-1.5b at full width and depth (6.4 GB), 2 prompts of
+    HYMBA_ORACLE_PROMPT tokens (five chunks of 256, past the window),
+    capacity prompt + HYMBA_ORACLE_NEW:
+
+    (i) the kernel prefill's last logits against ``Model.forward`` (plain
+        attention);
+    (ii) the kernel prefill against stepping ``decode_step`` token by
+        token from ``init_cache`` (no kernel): the last logits, every SSM
+        state and conv tail, and the ring K/V slot by slot (equal
+        capacities give equal slots; their positions must be equal);
+    (iii) the first decode step after the kernel prefill (position S)
+        against ``Model.forward`` over 2S tokens at S;
+    (iv) HYMBA_ORACLE_NEW greedy tokens from each path's caches: equal,
+        except at a near-tie of the recurrence's logits (2**-7 of the
+        largest |logit|), where comparing that row stops.
+
+    Tolerance of (i)-(iii): 1e-2 of the largest magnitude of each
+    compared quantity (logits, each state, conv tail, K, V): both sides
+    are float32 and round q, k, v and the attention probabilities to
+    bf16, so a one-ulp difference upstream can flip a rounding (2**-8
+    relative) that every later layer inherits (the level ROADMAP §3 holds
+    deeper-layer K/V to); the medians are printed beside."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config(HYMBA_ARCH), dtype="float32",
+                              logits_fp32=True)
+    params = init_params(cfg, seed=seed, device=dev)
+    model = Model(cfg)
+    b, s, v = HYMBA_ORACLE_BATCH, HYMBA_ORACLE_PROMPT, cfg.vocab_size
+    cap = s + HYMBA_ORACLE_NEW
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, v, (b, s)), device=dev)
+    reset_launch_counts()
+    lk, ck = model.prefill(params, toks, seq_capacity=cap)
+    assert launch_counts() == dict(flash_prefill=cfg.num_layers * b,
+                                   paged_attention=0,
+                                   ssd_scan=cfg.num_layers), launch_counts()
+    errs, medians = {}, {}
+
+    def check(what, got, want):
+        d = (got.float() - want.float()).abs()
+        scale = want.float().abs().max().clamp_min(1e-30)
+        errs[what] = max(errs.get(what, 0.0), (d.max() / scale).item())
+        medians[what] = max(medians.get(what, 0.0),
+                            (d.median() / scale).item())
+
+    full, _ = model.forward(params, toks)
+    check("(i) last logits vs forward", lk[:, :v], full[:, -1, :v])
+    del full
+
+    reset_launch_counts()
+    cr = model.init_cache(b, cap, device=dev)
+    t1 = time.monotonic()
+    for t in range(s):
+        lr, cr = model.decode_step(params, toks[:, t:t + 1],
+                                   torch.full((b,), t, device=dev), cr)
+    torch.cuda.synchronize()
+    step_s = (time.monotonic() - t1) / s
+    assert launch_counts() == dict(flash_prefill=0, paged_attention=0,
+                                   ssd_scan=0), "the recurrence launched"
+    check("(ii) last logits vs recurrence", lk[:, :v], lr[:, :v])
+    for seg, a, r in zip(model.plan, ck, cr):
+        (ka, sa), (kr, sr) = a, r
+        assert torch.equal(ka.pos, kr.pos), f"ring positions differ: {seg}"
+        check("(ii) ring K", ka.k, kr.k)
+        check("(ii) ring V", ka.v, kr.v)
+        check("(ii) SSM state", sa.state, sr.state)
+        check("(ii) conv tail", sa.conv, sr.conv)
+
+    nxt = torch.as_tensor(rng.integers(0, v, (b, 1)), device=dev)
+    ext = torch.cat([toks, nxt, torch.zeros_like(toks[:, 1:])], 1)
+    full2, _ = model.forward(params, ext)
+    got, _ = model.decode_step(params, nxt, torch.full((b,), s, device=dev),
+                               ck)
+    check("(iii) decode at S vs forward", got[:, :v], full2[:, s, :v])
+    del full2, ext
+    log(f"hymba oracle: {b} x {s} tokens float32 (a decode step "
+        f"{step_s * 1e3:.1f} ms); worst / median difference over the "
+        f"largest magnitude: " + ", ".join(
+            f"{k} {errs[k]:.3g} / {medians[k]:.3g}" for k in errs))
+    bad = {k: e for k, e in errs.items() if not e <= 1e-2}
+    assert not bad, f"hymba oracle beyond 1e-2: {bad}"
+
+    compared = near_ties = 0
+    min_gap = math.inf
+    live = [True] * b
+    pos = torch.full((b,), s, device=dev)
+    for i in range(HYMBA_ORACLE_NEW):
+        for r in range(b):
+            if not live[r]:
+                continue
+            equal, tie, gap = greedy_compare(lk[r], lr[r], v,
+                                             f"hymba row {r} token {i}")
+            compared += 1
+            min_gap = min(min_gap, gap)
+            if tie:
+                near_ties += 1
+                live[r] = False
+                log(f"hymba oracle: near-tie at token {i} of row {r}; "
+                    "stop there")
+        tk = lk[:, :v].argmax(-1)
+        tr = lr[:, :v].argmax(-1)
+        lk, ck = model.decode_step(params, tk[:, None], pos + i, ck)
+        lr, cr = model.decode_step(params, tr[:, None], pos + i, cr)
+    total = b * HYMBA_ORACLE_NEW
+    assert compared >= total // 2, f"only {compared}/{total} compared"
+    log(f"hymba oracle: {compared}/{total} greedy tokens equal from the "
+        f"two paths' caches, {near_ties} near-tie stops, smallest top-2 "
+        f"gap {min_gap:.3g} of the largest |logit|")
+    del params, ck, cr
+    torch.cuda.empty_cache()
+    return dict(batch=b, prompt=s, capacity=cap, rel_err=errs,
+                rel_median=medians, decode_step_ms=step_s * 1e3,
+                compared=compared, total=total, near_tie_stops=near_ties,
+                min_gap_rel=min_gap, seconds=time.monotonic() - t0)
+
+
+def mla_ring_check(dev, seed: int):
+    """deepseek-v2-236b at full width and ORACLE_LAYERS layers in float32
+    (the MLA oracle's configuration, capacity factor MLA_ORACLE_FACTOR: no
+    token dropped): ``Model.prefill`` of 2 prompts, then MLA_RING_NEW
+    greedy ``decode_step``s through the latent ring (``mla_decode``:
+    absorbed, bf16 operands, float32 sums), each token held against the
+    argmax of ``Model.forward`` over prompt + generated tokens. The ring
+    decode attends over the latent where Model.forward decompresses it,
+    so the two round differently (ROADMAP §3), and a MoE router's choice
+    near a tie can flip. A token may differ only (a) where Model.forward's
+    top-2 logits lie within NEAR_TIE of the largest |logit| and the decode
+    chose the runner-up, or (b) where the decode itself routed a generated
+    position up to that token's to other experts than Model.forward does
+    (its router logits are recorded during the decode) at a router
+    near-tie: Model.forward's k-th and (k+1)-th router logits there within
+    NEAR_TIE of the largest |router logit|; the prefill's routing of the
+    prompt (both rows in one batch) counts as the decode's. Model.forward
+    runs over the decode's own tokens, so every position has the same
+    prefix on both sides and all 2 x MLA_RING_NEW tokens are compared: a
+    mismatch does not end a row. The MLA path launches no kernel."""
+    import repro_torch.models.transformer as tr
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import MLACache
+
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(
+        get_config(MLA_ARCH), num_layers=ORACLE_LAYERS, dtype="float32",
+        logits_fp32=True, capacity_factor=MLA_ORACLE_FACTOR)
+    params = init_params(cfg, seed=seed, device=dev)
+    model = tr.Model(cfg)
+    b, s, v, k = 2, MLA_RING_PROMPT, cfg.vocab_size, cfg.moe_top_k
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, v, (b, s)), device=dev)
+    # router logits of each MoE layer call: the prefill's (B * S, E), then
+    # each decode step's (B, E)
+    routers = []
+    moe_forward = tr.moe_forward
+
+    def recording_moe(c, pm, h, **kw):
+        routers.append(h.reshape(-1, h.shape[-1]).float() @ pm["router"]["w"])
+        return moe_forward(c, pm, h, **kw)
+
+    reset_launch_counts()
+    out = []
+    tr.moe_forward = recording_moe
+    try:
+        logits, caches = model.prefill(params, toks,
+                                       seq_capacity=s + MLA_RING_NEW)
+        for i in range(MLA_RING_NEW):
+            tok = logits[:, :v].argmax(-1)
+            out.append(tok)
+            logits, caches = model.decode_step(
+                params, tok[:, None], torch.full((b,), s + i, device=dev),
+                caches)
+    finally:
+        tr.moe_forward = moe_forward
+    assert launch_counts() == dict(flash_prefill=0, paged_attention=0,
+                                   ssd_scan=0), launch_counts()
+    assert all(isinstance(c, MLACache) for c in caches)
+    n_moe = sum(seg.n for seg in model.plan if seg.mlp_kind == "moe")
+    assert len(routers) == n_moe * (1 + MLA_RING_NEW)
+    gen = torch.stack(out, 1)
+    compared = near_ties = flipped = 0
+    min_gap = math.inf
+    for r in range(b):
+        full = torch.cat([toks[r], gen[r, :-1]])[None]
+        lf, rf = oracle_forward(model, params, full)
+        lf = lf[0, s - 1:, :v].float()
+        for i in range(MLA_RING_NEW):
+            tok = int(gen[r, i])
+            top2 = torch.topk(lf[i], 2)
+            gap = float(top2.values[0] - top2.values[1])
+            top = float(lf[i].abs().max())
+            min_gap = min(min_gap, gap / top)
+            compared += 1
+            if tok == int(top2.indices[0]):
+                continue
+            if tok == int(top2.indices[1]) and gap < NEAR_TIE * top:
+                near_ties += 1
+                log(f"MLA ring: near-tie at token {i} of row {r}")
+                continue
+            # the positions routed before token i: the prompt's by the
+            # prefill, s .. s + i - 1 by decode steps 0 .. i - 1 (step j
+            # feeds token j at position s + j)
+            near = []
+            for layer in range(n_moe):
+                zd = torch.cat([routers[layer][r * s:(r + 1) * s]] + [
+                    routers[(1 + j) * n_moe + layer][r:r + 1]
+                    for j in range(i)])
+                zf = rf[layer][:s + i]
+                diff = (routed(zd, k) != routed(zf, k)).any(-1)
+                for pos in diff.nonzero().flatten().tolist():
+                    zs = torch.sort(zf[pos], descending=True).values
+                    rgap = float(zs[k - 1] - zs[k]) / float(
+                        zf[pos].abs().max())
+                    if rgap < NEAR_TIE:
+                        near.append((layer, pos, round(rgap, 6)))
+            assert near, \
+                f"MLA ring: token {i} of row {r}: decode {tok}, forward " \
+                f"{int(top2.indices[0])}, top-2 gap {gap / top:.3g} of the " \
+                f"largest |logit|, and no routing flip at a router near-tie"
+            flipped += 1
+            log(f"MLA ring: routing flip before token {i} of row {r}: the "
+                f"decode routes (MoE layer, position, Model.forward's router "
+                f"gap) {near} otherwise and chooses {tok} (Model.forward "
+                f"{int(top2.indices[0])}, top-2 gap {gap / top:.3g})")
+    total = b * MLA_RING_NEW
+    assert compared == total
+    log(f"MLA ring: {total - near_ties - flipped}/{total} float32 "
+        f"tokens equal to Model.forward's, {near_ties} at a near-tie, "
+        f"{flipped} after a routing flip at a router near-tie, "
+        f"smallest top-2 gap {min_gap:.3g} of the largest |logit|")
+    del params, caches
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.arch_id, layers=cfg.num_layers, prompt=s,
+                total=total, near_ties=near_ties, routing_flips=flipped,
+                min_gap_rel=min_gap, seconds=time.monotonic() - t0)
+
+
+def hymba_timing(dev, seed: int):
+    """The two kernels of hymba's prefill at its shapes, bf16: the prefill
+    attention as ``Model.prefill`` dispatches it (``prefill_attention``:
+    HYMBA_BATCH launches of the engine form, one per sequence, over
+    HYMBA_PROMPT tokens, G 5, Dh 64), with the window and without, beside
+    its plain version, SDPA on the same inputs and the contiguous entry
+    (``flash_prefill``: the float32 CUDA-core body, one launch); and
+    ``ssd_scan`` at (HYMBA_BATCH x HYMBA_PROMPT, 64 heads of 50, state 16,
+    chunk 256). Three input sets, cycled, so that no call finds its inputs
+    in the 50 MB L2. Returns one detail dict per kernel."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   prefill_attention)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    cfg = get_config(HYMBA_ARCH)
+    b, s = HYMBA_BATCH, HYMBA_PROMPT
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dtype = torch.bfloat16
+    esz = torch.finfo(dtype).bits // 8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    sets = [(rand(b, s, h, dh), rand(b, s, hkv, dh), rand(b, s, hkv, dh))
+            for _ in range(3)]
+    before = flash_prefill.launches
+    attention = {}
+    for window in (cfg.sliding_window, None):
+        q, k, v = sets[0]
+        got = prefill_attention(q, k, v, window=window)
+        want = ref.prefill_attention(q, k, v, window=window)
+        torch.testing.assert_close(got.float(), want.float(), **TOL_ENGINE)
+        pos = torch.arange(s, device=dev)
+        mask = pos[None] <= pos[:, None]
+        if window is not None:
+            mask &= pos[None] > pos[:, None] - window
+        lib = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+               for q, k, v in sets]
+        ms, device_ms, host_us = cuda_ms(
+            lambda i: prefill_attention(*sets[i % 3], window=window), 9)
+        plain_ms, plain_device_ms, _ = cuda_ms(
+            lambda i: ref.prefill_attention(*sets[i % 3], window=window), 6,
+            warmup=1)
+        library_ms, library_device_ms, _ = cuda_ms(
+            lambda i: F.scaled_dot_product_attention(
+                *lib[i % 3], attn_mask=mask, enable_gqa=True), 9)
+        contiguous_ms, contiguous_device_ms, _ = cuda_ms(
+            lambda i: flash_prefill(*sets[i % 3], causal=True,
+                                    window=window), 6, warmup=1)
+        pairs = int(mask.sum())
+        nbytes = 2 * b * s * h * dh * esz + 2 * b * s * hkv * dh * esz
+        flops = 4 * b * h * dh * pairs
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        attention["window" if window else "global"] = dict(
+            shape=[b, s, h, hkv, dh], window=window,
+            launches_per_call=b, max_abs_err=(got.float() - want.float())
+            .abs().max().item(), ms=ms, device_ms=device_ms,
+            host_us=host_us, plain_ms=plain_ms,
+            plain_device_ms=plain_device_ms, library_ms=library_ms,
+            library_device_ms=library_device_ms,
+            contiguous_ms=contiguous_ms,
+            contiguous_device_ms=contiguous_device_ms, valid_pairs=pairs,
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+    flash_prefill.launches = before  # timing launches are not the path's
+    del sets, lib
+
+    shape = (b, s, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+             cfg.ssm_state, cfg.ssm_chunk)
+    sets = [ssd_inputs(gen, dev, dtype, *shape[:6]) for _ in range(3)]
+    y, _ = ssd_scan(*sets[0], chunk=shape[6])
+    yr, _ = ref.ssd_scan(*sets[0], chunk=shape[6])
+    err = (y - yr).abs().max().item()
+    assert err <= SSD_TOL * yr.abs().max().item()
+    before = ssd_scan.launches
+    ms, device_ms, host_us = cuda_ms(
+        lambda i: ssd_scan(*sets[i % 3], chunk=shape[6]), 9)
+    plain_ms, plain_device_ms, _ = cuda_ms(
+        lambda i: ref.ssd_scan(*sets[i % 3], chunk=shape[6]), 6, warmup=1)
+    ssd_scan.launches = before
+    nbytes, flops = ssd_bytes_flops(*shape, dtype)
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    del sets, y, yr
+    torch.cuda.empty_cache()
+    ssd = dict(shape=list(shape[:6]), chunk=shape[6], max_abs_err=err,
+               ms=ms, device_ms=device_ms, host_us=host_us,
+               plain_ms=plain_ms, plain_device_ms=plain_device_ms,
+               library_ms=None, bytes=nbytes, flops=flops,
+               bound_ms=bound_ms, bound_by=bound_by)
+    for label, t in [*(("flash_prefill " + k, a)
+                       for k, a in attention.items()), ("ssd_scan", ssd)]:
+        log(f"{label} at hymba's prefill shape {t['shape']}: back to back "
+            f"{t['ms']:.4f} ms, device {fmt_ms(t['device_ms'])}, plain "
+            f"{t['plain_ms']:.4f} ms, library "
+            f"{fmt_ms(t['library_ms'])}" + (
+                f" (device {fmt_ms(t['library_device_ms'])}), contiguous "
+                f"entry {t['contiguous_ms']:.4f} ms (device "
+                f"{fmt_ms(t['contiguous_device_ms'])})"
+                if "contiguous_ms" in t else "") +
+            f"; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return attention, ssd
 
 
 # -- timing at the serve phase's shapes -----------------------------------------
@@ -2397,6 +2895,7 @@ def main() -> int:
     oracle = oracle_phase(dev, seed=1)
     slice1 = slice1_phase(dev, seed=8)
     mamba = mamba_phase(dev, seed=3)
+    hymba = hymba_phase(dev, seed=12)
     moe = moe_phases(dev, seed=9)
     dense = dense_phases(dev, seed=10)
     mla = mla_phases(dev, seed=11)
@@ -2408,8 +2907,18 @@ def main() -> int:
     flash, flash_shapes = flash_timing(
         dev, seed=5,
         launches=serve["prefill_launches"] + cluster["prefill_launches"]
-        + sum(h["prefill_launches"] for h in host_tiers))
-    ssd, ssd_shapes = ssd_timing(dev, seed=6, launches=mamba["launches"])
+        + sum(h["prefill_launches"] for h in host_tiers)
+        + hymba["launches"]["flash_prefill"])
+    ssd, ssd_shapes = ssd_timing(
+        dev, seed=6,
+        launches=mamba["launches"] + hymba["launches"]["ssd_scan"])
+    hymba_attention, hymba_ssd = hymba_timing(dev, seed=7)
+    # each kernel's entry also carries its time at hymba's prefill shape
+    flash["at_hymba"] = dict(
+        launches_per_prefill=hymba["launches"]["flash_prefill"],
+        **hymba_attention)
+    ssd["at_hymba"] = dict(launches_per_prefill=hymba["launches"]["ssd_scan"],
+                           **hymba_ssd)
     served = dict(dense["serve"], **{MOE_ARCH: moe["serve"],
                                      MLA_ARCH: mla["serve"]})
     gqa_timed = {}
@@ -2467,6 +2976,11 @@ def main() -> int:
     log(f"mamba2 phase on {card}: prefill {mamba['prefill_ms']:.1f} ms "
         f"for {MAMBA_BATCH} x {MAMBA_PROMPT} tokens, decode "
         f"{mamba['decode_tokens_per_s']:.1f} tokens/s")
+    log(f"hymba phase on {card}: prefill {hymba['prefill_ms']:.1f} ms "
+        f"for {HYMBA_BATCH} x {HYMBA_PROMPT} tokens "
+        f"({hymba['prefill_tokens_per_s']:.0f} tokens/s), decode "
+        f"{hymba['decode_tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+        f"{hymba['measure_peak_gib']:.2f} GiB")
     log_timings(card, [(paged, paged_shapes), (flash, flash_shapes),
                        (ssd, ssd_shapes)])
     for arch, timed in gqa_timed.items():
@@ -2474,7 +2988,7 @@ def main() -> int:
                     timed)
     log("detail " + json.dumps(dict(
         card=card, serve=serve, oracle=oracle, slice1=slice1, mamba=mamba,
-        moe=moe, dense=dense, mla=mla, kernel_cases=cases,
+        hymba=hymba, moe=moe, dense=dense, mla=mla, kernel_cases=cases,
         timing=dict(paged_attention=paged_shapes,
                     flash_prefill=flash_shapes, ssd_scan=ssd_shapes,
                     gqa={arch: dict(paged_attention=dict(t[0][0], **t[0][1]),

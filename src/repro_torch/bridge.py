@@ -65,10 +65,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     """The reference's parameter tree for ``cfg``, drawn on ``device`` from
     a ``torch.Generator`` seeded with ``seed``: dense weights normal *
     1/sqrt(d_in), the embedding normal * 0.02 over the 512-padded vocab,
-    norm scales one (an MLA layer's latent projections and norms too); a MoE layer's float32 router normal * 1/sqrt(d), its
-    experts' up and gate normal * 1/sqrt(d) and down normal * 1/sqrt(ff);
-    an SSM layer's conv weights normal * 0.2, A_log =
-    log(1..H), D one, dt_bias and the conv bias zero. Same shapes and
+    norm scales one (an MLA layer's latent projections and norms too); a
+    MoE layer's float32 router normal * 1/sqrt(d), its experts' up and
+    gate normal * 1/sqrt(d) and down normal * 1/sqrt(ff); an SSM layer's
+    conv weights normal * 0.2, A_log = log(1..H), D one, dt_bias and the
+    conv bias zero. A hybrid layer has both ``attn`` and ``ssm`` and the
+    dense MLP (``transformer.py:87-106``). Same shapes and
     distributions as ``Model.init``; not the same numbers (JAX's generator
     differs)."""
     dev = resolve_device(device)
@@ -80,11 +82,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     for seg in stack_plan(cfg):
         lead = (seg.n,) if seg.n > 1 else ()
         p = {"ln1": norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias)}
-        if seg.mixer == "gqa":
+        if seg.mixer in ("gqa", "hybrid"):
             p["attn"] = gqa_init(cfg, gen, dt, dev, lead=lead)
         if seg.mixer == "mla":
             p["attn"] = mla_init(cfg, gen, dt, dev, lead=lead)
-        if seg.mixer == "ssm":
+        if seg.mixer in ("ssm", "hybrid"):
             p["ssm"] = ssm_init(cfg, gen, dt, dev, lead=lead)
         if seg.mlp_kind == "dense":
             p["ln2"] = norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias)

@@ -7,7 +7,8 @@ a ``torch.dtype`` instead. ``get_config`` resolves dashed ids
 returns the reduced variant the CPU tests use (2 layers, d_model 256),
 built exactly as the reference builds it. Only the archs the port runs so
 far have a module here: the GQA decoders (dense, and MoE on GQA),
-deepseek-v2 (MLA + MoE) and mamba2.
+deepseek-v2 (MLA + MoE), mamba2 and hymba (parallel attention + SSM
+heads).
 """
 
 from __future__ import annotations
@@ -125,6 +126,7 @@ ARCH_IDS = [
     "mistral-large-123b",
     "llama4-scout-17b-a16e",
     "deepseek-v2-236b",
+    "hymba-1.5b",
 ]
 
 

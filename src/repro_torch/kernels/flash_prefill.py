@@ -11,9 +11,14 @@ Two entry points of one kernel:
   chunk's page ids, with the numerics of ``blockwise_attention`` (bf16
   rounding of q, k, v and the normalised probabilities).
 
+:func:`prefill_attention` is ``Model.prefill``'s full-sequence attention
+on the second entry point's body: the batch's contiguous K/V (B, S, Hkv,
+Dh) is read in place as a pool of B pages of S tokens, one launch per
+sequence over its own page, so any S is taken.
+
 Each dispatches by the device of its tensors. CPU tensors take the plain
 version (``kernels.ref``); CUDA tensors launch the kernel or raise: there
-is no fallback from one to the other. Each launch, through either entry
+is no fallback from one to the other. Each launch, through any entry
 point, adds one to ``flash_prefill.launches``.
 """
 
@@ -155,17 +160,54 @@ def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
                          f"{page_ids.shape[0]}")
     out = torch.empty_like(q)
     if s:
-        lib = _lib()
-        ks, vs = k_pool.stride(), v_pool.stride()
-        err = _build.call(
-            lib.flash_prefill_paged, q.get_device(),
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_ids.data_ptr(), out.data_ptr(), s, h, k_pool.shape[2],
-            dh, ps, k_pool.shape[0], q_offset, window or 0,
-            ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], 1.0 / dh ** 0.5,
-            _DTYPES[q.dtype])
-        _raise_on(lib, err)
-        flash_prefill.launches += 1
+        _launch_paged(q, k_pool, v_pool, page_ids, out, q_offset, window)
+    return out
+
+
+def _launch_paged(q, k_pool, v_pool, page_ids, out, q_offset, window):
+    """One launch of the engine form, checked by the caller."""
+    lib = _lib()
+    _, s, h, dh = q.shape
+    ks, vs = k_pool.stride(), v_pool.stride()
+    err = _build.call(
+        lib.flash_prefill_paged, q.get_device(),
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        page_ids.data_ptr(), out.data_ptr(), s, h, k_pool.shape[2],
+        dh, k_pool.shape[1], k_pool.shape[0], q_offset, window or 0,
+        ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], 1.0 / dh ** 0.5,
+        _DTYPES[q.dtype])
+    _raise_on(lib, err)
+    flash_prefill.launches += 1
+
+
+def prefill_attention(q, k, v, *, window: Optional[int] = None):
+    """Causal self-attention of whole sequences, with
+    ``blockwise_attention``'s numerics. Arguments and result as
+    :func:`repro_torch.kernels.ref.prefill_attention`.
+
+    On CUDA: q a contiguous (B, S, H, Dh); k and v (B, S, Hkv, Dh) with a
+    unit head_dim stride. Sequence ``b`` is one launch of the engine form
+    with k and v as a pool of B pages of S tokens and page ids ``[b]``:
+    B launches, no copy of K/V.
+    """
+    _same_device("prefill_attention", q, k=k, v=v)
+    if window is not None and window < 1:
+        raise ValueError(f"prefill_attention: window must be >= 1, got "
+                         f"{window}")
+    if q.device.type == "cpu":
+        return ref.prefill_attention(q, k, v, window=window)
+    _check_common("prefill_attention", q, k, v)
+    b, s = q.shape[:2]
+    if k.dim() != 4 or k.shape[:2] != (b, s):
+        raise ValueError(f"prefill_attention: k and v must be (B, S, Hkv, "
+                         f"Dh) with q's B={b} and S={s}, got "
+                         f"{tuple(k.shape)}")
+    out = torch.empty_like(q)
+    if s:
+        pages = torch.arange(b, dtype=torch.int32, device=q.device)
+        for i in range(b):
+            _launch_paged(q[i:i + 1], k, v, pages[i:i + 1], out[i:i + 1], 0,
+                          window)
     return out
 
 

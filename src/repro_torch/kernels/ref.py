@@ -130,6 +130,15 @@ def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
                                q_offset=q_offset)
 
 
+def prefill_attention(q, k, v, *, window: Optional[int] = None):
+    """Causal self-attention of whole sequences, as the reference's
+    ``Model.prefill`` computes it: ``blockwise_attention`` (bf16 q, k, v
+    and probabilities, float32 sums). q: (B, S, H, Dh); k, v: (B, S, Hkv,
+    Dh); key ``j`` is valid for query ``i`` iff ``j <= i`` and, with a
+    window, ``j > i - window``. Output in q's type."""
+    return blockwise_attention(q, k, v, causal=True, window=window)
+
+
 def ssd_scan(x, dt, A, B, C, *, chunk: int):
     """Mamba2 SSD chunked scan: the arithmetic of the Pallas kernel
     ``_ssd_kernel`` and of ``repro.models.ssm.ssd_chunked``, with the

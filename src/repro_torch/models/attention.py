@@ -9,6 +9,14 @@ the reference): float32 token identity with the reference depends on it.
 GQA decode attention over the paged cache stays in float32
 (``repro_torch.kernels.paged_attention``).
 
+``Model.decode_step`` attends over ring-buffer caches instead
+(:class:`KVCache`, :class:`MLACache`): a cache of capacity ``Sc`` keeps
+position ``p`` in slot ``p % Sc`` and remembers each slot's absolute
+position (-1 while empty), so a sliding-window segment holds only its
+window. ``gqa_decode`` and ``mla_decode`` compute that attention as the
+reference does, in plain einsums with bfloat16 operands (``attention.py:
+311-321, 403-420``): the reference has no kernel there.
+
 MLA caches only the shared latent per token: ``ckv`` (``kv_lora_rank``,
 normed) and ``krope`` (``qk_rope_head_dim``, roped). ``mla_forward``
 decompresses it to per-head K/V and runs standard attention (the
@@ -21,9 +29,10 @@ reference or here: the reference computes them in XLA.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.layers import apply_rope, dense, dense_init, mlp, \
     norm_init, pad_last, rms_norm
@@ -31,6 +40,23 @@ from repro_torch.models.layers import apply_rope, dense, dense_init, mlp, \
 # queries per block of the score matrix: bounds live memory at
 # (B, Q_BLOCK, H, Skv) float32 without changing any query's result
 Q_BLOCK = 512
+
+
+class KVCache(NamedTuple):
+    """Ring-buffer KV cache of a GQA segment (``attention.py:38-44``).
+    Leaves carry a leading layer axis in a segment of several layers."""
+
+    k: torch.Tensor  # (B, Sc, Hkv, Dh)
+    v: torch.Tensor  # (B, Sc, Hkv, Dh)
+    pos: torch.Tensor  # (B, Sc) int32 absolute position per slot, -1 = empty
+
+
+class MLACache(NamedTuple):
+    """Ring-buffer latent cache of an MLA segment (``attention.py:47-50``)."""
+
+    ckv: torch.Tensor  # (B, Sc, r) normed latent
+    krope: torch.Tensor  # (B, Sc, dr) roped shared rope key
+    pos: torch.Tensor  # (B, Sc) int32
 
 
 def gqa_init(cfg, gen, dtype, device, *, lead=()):
@@ -138,10 +164,11 @@ def gqa_layer(cfg, p, x, positions, attend, mlp_fn=None):
 
 
 def gqa_forward(cfg, p, x, positions, *, window=None,
-                return_kv: bool = False):
+                return_kv: bool = False, attend=None):
     """Full-sequence causal GQA self-attention block (no norm, no
     residual). Returns the output, and with ``return_kv`` also the roped
-    (k, v)."""
+    (k, v). ``attend(q, k, v) -> ctx`` replaces ``blockwise_attention``
+    (``Model.prefill`` passes the kernel's dispatch)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = apply_rope(dense(p["wq"], x).reshape(b, s, h, dh), positions,
@@ -149,11 +176,69 @@ def gqa_forward(cfg, p, x, positions, *, window=None,
     k = apply_rope(dense(p["wk"], x).reshape(b, s, hkv, dh), positions,
                    cfg.rope_theta)
     v = dense(p["wv"], x).reshape(b, s, hkv, dh)
-    out = blockwise_attention(q, k, v, causal=True, window=window)
+    if attend is None:
+        out = blockwise_attention(q, k, v, causal=True, window=window)
+    else:
+        out = attend(q, k, v)
     y = dense(p["wo"], out.reshape(b, s, h * dh))
     if return_kv:
         return y, (k, v)
     return y
+
+
+# ---------------------------------------------------------------------------
+# decode: one token against a ring-buffer cache
+# ---------------------------------------------------------------------------
+
+def cache_update(cache_pos, pos):
+    """The ring slot of absolute position ``pos`` in a cache of capacity
+    Sc (``attention.py:262-265``)."""
+    return pos % cache_pos.shape[-1]
+
+
+def _write_slot(buf, slot, new):
+    """A copy of ``buf`` (B, Sc, ...) with ``new`` (B, ...) written at each
+    row's ``slot``; ``buf`` itself is not changed."""
+    out = buf.clone()
+    out[torch.arange(buf.shape[0], device=buf.device), slot] = \
+        new.to(buf.dtype)
+    return out
+
+
+def _decode_mask(cache_pos, pos, window):
+    """(B, Sc) validity of each slot for the query at absolute ``pos``."""
+    valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
+    if window is not None:
+        valid &= cache_pos > (pos[:, None] - window)
+    return valid
+
+
+def gqa_decode(cfg, p, x, cache: KVCache, pos, *, window=None):
+    """x: (B, 1, D); pos: (B,) absolute position of the new token. Writes
+    its K/V into the ring and attends over the valid slots, as the
+    reference does (``attention.py:282-324``, without cross-attention):
+    bfloat16 q, k, v and probabilities, float32 scores and sums. Returns
+    (y (B, 1, D), the new cache)."""
+    b = x.shape[0]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = apply_rope(dense(p["wq"], x).reshape(b, 1, h, dh), pos[:, None],
+                   cfg.rope_theta)
+    knew = apply_rope(dense(p["wk"], x).reshape(b, 1, hkv, dh),
+                      pos[:, None], cfg.rope_theta)
+    vnew = dense(p["wv"], x).reshape(b, 1, hkv, dh)
+    slot = cache_update(cache.pos, pos)
+    cache = KVCache(k=_write_slot(cache.k, slot, knew[:, 0]),
+                    v=_write_slot(cache.v, slot, vnew[:, 0]),
+                    pos=_write_slot(cache.pos, slot, pos))
+    mask = _decode_mask(cache.pos, pos, window)  # (B, Sc)
+    qg = _bf16(q.reshape(b, hkv, h // hkv, dh))
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, _bf16(cache.k)) \
+        / math.sqrt(dh)
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", _bf16(probs), _bf16(cache.v))
+    out = out.reshape(b, 1, h * dh).to(x.dtype)
+    return dense(p["wo"], out), cache
 
 
 # ---------------------------------------------------------------------------
@@ -190,10 +275,11 @@ def _mla_latent(cfg, p, x, positions):
     return ckv, krope
 
 
-def mla_forward(cfg, p, x, positions):
+def mla_forward(cfg, p, x, positions, *, return_latent: bool = False):
     """Full-sequence causal MLA block (no norm, no residual): decompress the
     latent to per-head K/V and run standard attention, scaled by the
-    concatenated head dim dn + dr."""
+    concatenated head dim dn + dr. With ``return_latent`` also the latent
+    ``(ckv, krope)``: the seed of the decode cache."""
     b, s, _ = x.shape
     h, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_head_dim,
                      cfg.qk_rope_head_dim, cfg.v_head_dim)
@@ -205,7 +291,41 @@ def mla_forward(cfg, p, x, positions):
     q = torch.cat([qn, qr], dim=-1)
     k = torch.cat([kn, krope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
     out = blockwise_attention(q, k, v, causal=True)
-    return dense(p["wo"], out.reshape(b, s, h * dv))
+    y = dense(p["wo"], out.reshape(b, s, h * dv))
+    if return_latent:
+        return y, (ckv, krope)
+    return y
+
+
+def mla_decode(cfg, p, x, cache: MLACache, pos):
+    """Matrix-absorbed MLA decode over the latent ring
+    (``attention.py:380-424``): writes the new token's latent, scores
+    ``q_lat . ckv + qr . krope`` over the valid slots, takes the context
+    in the latent and lifts it through W_UV; every product on bfloat16
+    operands with float32 sums. x: (B, 1, D); pos: (B,). Returns (y, the
+    new cache)."""
+    b = x.shape[0]
+    h, dv = cfg.num_heads, cfg.v_head_dim
+    qn, qr = _mla_q(cfg, p, x)  # (B, 1, H, dn), (B, 1, H, dr)
+    qr = apply_rope(qr, pos[:, None], cfg.rope_theta)
+    ckv_new, krope_new = _mla_latent(cfg, p, x, pos[:, None])
+    slot = cache_update(cache.pos, pos)
+    cache = MLACache(ckv=_write_slot(cache.ckv, slot, ckv_new[:, 0]),
+                     krope=_write_slot(cache.krope, slot, krope_new[:, 0]),
+                     pos=_write_slot(cache.pos, slot, pos))
+    mask = _decode_mask(cache.pos, pos, None)  # (B, Sc)
+    w_uk, w_uv = mla_absorb(cfg, p)
+    ckv = _bf16(cache.ckv)
+    q_lat = torch.einsum("bhd,rhd->bhr", _bf16(qn[:, 0]), _bf16(w_uk))
+    scores = torch.einsum("bhr,bsr->bhs", _bf16(q_lat), ckv)
+    scores = scores + torch.einsum("bhd,bsd->bhs", _bf16(qr[:, 0]),
+                                   _bf16(cache.krope))
+    scores = (scores * _mla_scale(cfg)).masked_fill(~mask[:, None, :],
+                                                    float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", _bf16(probs), ckv)
+    out = torch.einsum("bhr,rhd->bhd", _bf16(ctx), _bf16(w_uv))
+    return dense(p["wo"], out.reshape(b, 1, h * dv).to(x.dtype)), cache
 
 
 def mla_absorb(cfg, p):
@@ -274,3 +394,16 @@ def mla_layer(cfg, p, x, positions, attend_latent, mlp_fn=None):
     y = x + mla_attention(cfg, p["attn"], hn, positions, attend_latent)
     h2 = rms_norm(p["ln2"], y, cfg.norm_eps)
     return y + (mlp(p["mlp"], h2) if mlp_fn is None else mlp_fn(p["mlp"], h2))
+
+
+def mla_prefill_cache(cfg, p, x, positions, capacity: int):
+    """The latent cache of a full prefill pass, padded to ``capacity``
+    slots with position -1 (``attention.py:506-519``). x: (B, S, D), the
+    layer's normed input; positions: (S,)."""
+    b, s, _ = x.shape
+    ckv, krope = _mla_latent(cfg, p, x, positions)
+    pad = capacity - s
+    pos = positions.to(torch.int32).expand(b, s)
+    return MLACache(ckv=F.pad(ckv, (0, 0, 0, pad)),
+                    krope=F.pad(krope, (0, 0, 0, pad)),
+                    pos=F.pad(pos, (0, pad), value=-1))

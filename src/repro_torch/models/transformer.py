@@ -1,32 +1,44 @@
-"""Decoder stack (``repro.models.transformer``) for the plans ported so
-far: dense GQA, global or sliding window (danube: ``[24 x swa-dense]``),
-MoE on GQA (llama4-scout: ``[48 x gqa-moe]``), MLA + MoE (deepseek-v2:
-``[1 x mla-dense, 59 x mla-moe]``; a MoE plan starts with its
-``first_k_dense`` dense layers), and the attention-free SSM plan (mamba2:
-``[48 x ssm]``).
+"""Decoder stack (``repro.models.transformer``) for every decoder-only plan
+of the reference: dense GQA, global or sliding window (danube:
+``[24 x swa-dense]``), MoE on GQA (llama4-scout: ``[48 x gqa-moe]``), MLA +
+MoE (deepseek-v2: ``[1 x mla-dense, 59 x mla-moe]``; a MoE plan starts
+with its ``first_k_dense`` dense layers), the attention-free SSM plan
+(mamba2: ``[48 x ssm]``) and the hybrid plan, attention and SSM heads side
+by side in every layer (hymba: ``[1 x global, 15 x swa] x 2``).
 
 A model is a sequence of **segments**: runs of identical layers whose
 parameters are stacked along a leading layer axis, exactly as the
 reference stores them (``transformer.py:319``). The reference scans over
 that axis; here a Python loop indexes it. ``Model.forward`` is the
-teacher-forced oracle of the engine tests and of ``chip_smoke.py``; an MLA
-layer there decompresses the latent and runs standard attention
-(``mla_forward``), where the engine attends over the latent.
-``Model.prefill`` / ``Model.decode_step`` serve the SSM plan, whose decode
-cache is a constant-size state (the paged engine serves GQA and MLA); a
-segment's cache is an :class:`SSMCache` whose tensors carry the segment's
-stacked layer axis, as the reference's scan stacks them.
+teacher-forced oracle of the engine tests and of ``chip_smoke.py``, in
+plain PyTorch attention; an MLA layer there decompresses the latent and
+runs standard attention (``mla_forward``), where the engine attends over
+the latent.
+
+``Model.prefill`` / ``Model.decode_step`` serve every plan from per-segment
+decode caches, as the reference's do (``transformer.py:396-525``): a GQA
+segment keeps a ring-buffer :class:`KVCache` (capacity the window in a
+sliding-window segment, else the sequence capacity), an MLA segment a
+latent :class:`MLACache`, an SSM segment an :class:`SSMCache` (conv tail
+and float32 state), a hybrid one the pair ``(KVCache, SSMCache)``. Leaves
+carry the segment's stacked layer axis where it has more than one layer.
+On CUDA tensors the prefill's GQA and hybrid attention launches the
+``flash_prefill`` kernel (its engine form, with ``blockwise_attention``'s
+numerics) and the SSM heads the ``ssd_scan`` kernel; the decode attention
+is plain PyTorch, as the reference's is XLA. The paged engine serves only
+uniform GQA or MLA stacks; hybrid and SSM models run here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_prefill import prefill_attention
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import embed, mlp, rms_norm, unembed
@@ -42,18 +54,28 @@ class Segment:
 
 
 def stack_plan(cfg: ArchConfig) -> List[Segment]:
-    """The reference's plan (``transformer.py:51``) for a GQA or MLA
-    decoder, dense or MoE, or an SSM decoder; the other families come with
-    their slices of the port."""
+    """The reference's plan (``transformer.py:51-76``) for a GQA or MLA
+    decoder, dense or MoE, an SSM decoder or a hybrid one; the
+    encoder-decoder family comes with its slice of the port."""
     if cfg.family == "ssm":
         if cfg.d_ff:
             raise NotImplementedError(
                 f"{cfg.arch_id}: an SSM plan with an MLP is not ported yet")
         return [Segment(cfg.num_layers, "ssm", "none", "none")]
-    if cfg.is_hybrid or cfg.is_encdec:
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.arch_id}: only the GQA and MLA (dense or MoE) and SSM "
-            "plans are ported so far")
+            f"{cfg.arch_id}: the encoder-decoder plan is not ported yet")
+    if cfg.is_hybrid:
+        # a global layer, then a run of window layers, repeated
+        segs, i = [], 0
+        every = cfg.global_attn_every or cfg.num_layers
+        while i < cfg.num_layers:
+            segs.append(Segment(1, "hybrid", "dense", "global"))
+            run = min(every - 1, cfg.num_layers - i - 1)
+            if run > 0:
+                segs.append(Segment(run, "hybrid", "dense", "swa"))
+            i += 1 + run
+        return segs
     mixer = "mla" if cfg.attention == "mla" else "gqa"
     attn_kind = "swa" if cfg.sliding_window else "global"
     if cfg.is_moe:
@@ -78,30 +100,179 @@ def seg_window(cfg: ArchConfig, seg: Segment):
     return cfg.sliding_window if seg.attn_kind == "swa" else None
 
 
-def ssm_layer(cfg, p, x, *, return_cache: bool = False):
-    """One SSM layer (pre-norm residual Mamba2 block, no MLP)."""
-    out = ssm_mod.ssm_forward(cfg, p["ssm"], rms_norm(p["ln1"], x,
-                                                      cfg.norm_eps),
-                              return_cache=return_cache)
-    if return_cache:
-        out, cache = out
-        return x + out, cache
-    return x + out
+def _plain_attention(q, k, v, window):
+    return attn.blockwise_attention(q, k, v, causal=True, window=window)
 
 
-def mla_forward_layer(cfg, p, x, positions, mlp_fn=None):
-    """One full-sequence MLA layer: pre-norm residual ``mla_forward`` (the
-    decompressed form), then the pre-norm residual MLP, as the reference's
-    ``_layer_forward`` runs it (``transformer.py:139-141, 169-176``)."""
-    x = x + attn.mla_forward(cfg, p["attn"],
-                             rms_norm(p["ln1"], x, cfg.norm_eps), positions)
+def _kernel_attention(q, k, v, window):
+    return prefill_attention(q, k, v, window=window)
+
+
+def _mlp_residual(cfg, seg: Segment, p, x, mlp_fn):
+    """The pre-norm residual MLP of a layer (``mlp_fn`` for MoE)."""
+    if seg.mlp_kind == "none":
+        return x
     h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
     return x + (mlp(p["mlp"], h2) if mlp_fn is None else mlp_fn(p["mlp"], h2))
 
 
-def _stack_caches(caches):
-    return ssm_mod.SSMCache(conv=torch.stack([c.conv for c in caches]),
-                            state=torch.stack([c.state for c in caches]))
+def _layer_forward(cfg, seg: Segment, p, x, positions, *, attention,
+                   mlp_fn=None, collect: bool = False):
+    """One full-sequence layer (``transformer.py:109-177``, without
+    cross-attention). ``attention(q, k, v, window) -> ctx`` is the causal
+    self-attention of GQA and hybrid layers. Returns (x, seed): with
+    ``collect`` the seed of the decode cache (gqa: (k, v); mla: (ckv,
+    krope); ssm: SSMCache; hybrid: ((k, v), SSMCache)), else None."""
+    window = seg_window(cfg, seg)
+
+    def attend(q, k, v):
+        return attention(q, k, v, window)
+
+    if seg.mixer == "gqa":
+        kv = []
+
+        def attend_keep(q, k, v):
+            kv.append((k, v))
+            return attend(q, k, v)
+
+        x = attn.gqa_layer(cfg, p, x, positions, attend_keep, mlp_fn)
+        return x, (kv[0] if collect else None)
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    seed = None
+    if seg.mixer == "mla":
+        out = attn.mla_forward(cfg, p["attn"], h, positions,
+                               return_latent=collect)
+        if collect:
+            out, seed = out
+        x = x + out
+    elif seg.mixer == "ssm":
+        out = ssm_mod.ssm_forward(cfg, p["ssm"], h, return_cache=collect)
+        if collect:
+            out, seed = out
+        x = x + out
+    else:  # hybrid: parallel heads, averaged fusion
+        a = attn.gqa_forward(cfg, p["attn"], h, positions,
+                             return_kv=collect, attend=attend)
+        m = ssm_mod.ssm_forward(cfg, p["ssm"], h, return_cache=collect)
+        if collect:
+            (a, kv), (m, sc) = a, m
+            seed = (kv, sc)
+        x = x + 0.5 * (a + m)
+    return _mlp_residual(cfg, seg, p, x, mlp_fn), seed
+
+
+def mla_forward_layer(cfg, p, x, positions, mlp_fn=None):
+    """One full-sequence MLA layer as ``Model.forward`` runs it: pre-norm
+    residual ``mla_forward`` (the decompressed form), then the pre-norm
+    residual MLP (``mlp_fn`` for MoE)."""
+    return _layer_forward(cfg, Segment(1, "mla", "dense", "global"), p, x,
+                          positions, attention=_plain_attention,
+                          mlp_fn=mlp_fn)[0]
+
+
+def _layer_decode(cfg, seg: Segment, p, x, pos, cache):
+    """One-token layer step against its cache (``transformer.py:180-223``,
+    without cross-attention). Returns (x, the new cache)."""
+    window = seg_window(cfg, seg)
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    if seg.mixer == "gqa":
+        out, cache = attn.gqa_decode(cfg, p["attn"], h, cache, pos,
+                                     window=window)
+        x = x + out
+    elif seg.mixer == "mla":
+        out, cache = attn.mla_decode(cfg, p["attn"], h, cache, pos)
+        x = x + out
+    elif seg.mixer == "ssm":
+        out, cache = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache)
+        x = x + out
+    else:
+        kv_c, ssm_c = cache
+        a, kv_c = attn.gqa_decode(cfg, p["attn"], h, kv_c, pos,
+                                  window=window)
+        m, ssm_c = ssm_mod.ssm_decode(cfg, p["ssm"], h, ssm_c)
+        x = x + 0.5 * (a + m)
+        cache = (kv_c, ssm_c)
+    mlp_fn = (lambda pm, h2: moe_forward(cfg, pm, h2)) \
+        if seg.mlp_kind == "moe" else None
+    return _mlp_residual(cfg, seg, p, x, mlp_fn), cache
+
+
+# -- cache trees: NamedTuples and tuples of tensors ---------------------------
+
+def _tree_map(fn, *trees):
+    t0 = trees[0]
+    if isinstance(t0, tuple):
+        parts = [_tree_map(fn, *leaves) for leaves in zip(*trees)]
+        return type(t0)(*parts) if hasattr(t0, "_fields") else tuple(parts)
+    return fn(*trees)
+
+
+def _tree_index(tree, i: int):
+    """Layer ``i`` of a stacked cache tree (views)."""
+    return _tree_map(lambda t: t[i], tree)
+
+
+def _tree_stack(trees):
+    return _tree_map(lambda *ts: torch.stack(ts), *trees)
+
+
+def segment_cache_capacity(cfg, seg: Segment, seq_len: int) -> int:
+    """A window segment's ring holds the window; any other the sequence."""
+    if seg.attn_kind == "swa" and cfg.sliding_window:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def _empty_segment_cache(cfg, seg: Segment, batch: int, seq_len: int,
+                         device):
+    """Zeros in the model type, int32 positions -1, the float32 SSM state;
+    the segment's layer axis first where it has several layers
+    (``transformer.py:236-273``)."""
+    cap = segment_cache_capacity(cfg, seg, seq_len)
+    lead = (seg.n,) if seg.n > 1 else ()
+    dtype = cfg.torch_dtype
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(lead + shape, dtype=dt, device=device)
+
+    def empty_pos():
+        return torch.full(lead + (batch, cap), -1, dtype=torch.int32,
+                          device=device)
+
+    def kv():
+        shape = (batch, cap, cfg.num_kv_heads, cfg.head_dim)
+        return attn.KVCache(k=zeros(*shape), v=zeros(*shape), pos=empty_pos())
+
+    def ssmc():
+        return ssm_mod.SSMCache(
+            conv=zeros(batch, cfg.ssm_conv_width - 1, ssm_mod.conv_dim(cfg)),
+            state=zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                        cfg.ssm_state, dt=torch.float32))
+
+    if seg.mixer == "gqa":
+        return kv()
+    if seg.mixer == "mla":
+        return attn.MLACache(ckv=zeros(batch, cap, cfg.kv_lora_rank),
+                             krope=zeros(batch, cap, cfg.qk_rope_head_dim),
+                             pos=empty_pos())
+    if seg.mixer == "ssm":
+        return ssmc()
+    return kv(), ssmc()
+
+
+def _ring_set(buf, new, slots, take: int, s: int, ndims: int = 2):
+    """buf: ([n,] B, cap, ...); new: ([n,] B, s, ...): the last ``take``
+    positions of ``new`` into ring ``slots``. ``ndims``: trailing dims
+    after the sequence axis (``transformer.py:511-517``)."""
+    dim = buf.dim() - 1 - ndims
+    return buf.index_copy(dim, slots,
+                          new.narrow(dim, s - take, take).to(buf.dtype))
+
+
+def _ring_set_pos(buf, posvec, slots):
+    """buf: ([n,] B, cap) int32: absolute positions into ring ``slots``."""
+    val = posvec.to(torch.int32).expand(buf.shape[:-1] + posvec.shape)
+    return buf.index_copy(buf.dim() - 1, slots, val.contiguous())
 
 
 class Model:
@@ -127,11 +298,9 @@ class Model:
         return unembed(params["embed"], x, cfg.vocab_size,
                        fp32=cfg.logits_fp32)
 
-    @torch.no_grad()
-    def forward(self, params, tokens):
-        """Teacher-forced logits (B, S, V) and the MoE aux loss summed over
-        the MoE layers (zero for a dense plan), as the reference returns
-        them (``transformer.py:325-345``)."""
+    def _run_stack(self, params, tokens, *, attention, collect: bool):
+        """Embed and run every layer. Returns (x, aux summed over the MoE
+        layers, one seed per segment stacked along its layer axis)."""
         cfg = self.cfg
         x = embed(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -142,85 +311,111 @@ class Model:
             aux[0] = aux[0] + layer_aux
             return out
 
-        for seg, _, p in self.layers(params):
-            mlp_fn = moe_fn if seg.mlp_kind == "moe" else None
-            if seg.mixer == "ssm":
-                x = ssm_layer(cfg, p, x)
-            elif seg.mixer == "mla":
-                x = mla_forward_layer(cfg, p, x, positions, mlp_fn)
-            else:
-                def attend(q, k, v, window=seg_window(cfg, seg)):
-                    return attn.blockwise_attention(q, k, v, causal=True,
-                                                    window=window)
-
-                x = attn.gqa_layer(cfg, p, x, positions, attend, mlp_fn)
-        return self._logits(params, x), aux[0]
-
-    def _require_ssm(self, what: str):
-        if any(seg.mixer != "ssm" for seg in self.plan):
-            raise NotImplementedError(
-                f"{self.cfg.arch_id}: {what} is ported for the SSM plan "
-                "only (ring KV caches come with hymba)")
-
-    def init_cache(self, batch: int, *, device="cuda"):
-        """Empty decode caches, one :class:`SSMCache` per segment: the conv
-        window in the model type and the float32 state, each with the
-        segment's stacked layer axis. An SSM cache's size does not depend
-        on the sequence length (the reference's ``seq_len`` argument sizes
-        ring KV caches, which come with hymba)."""
-        self._require_ssm("init_cache")
-        cfg = self.cfg
-        device = resolve_device(device)
-        caches = []
-        for seg in self.plan:
-            lead = (seg.n,) if seg.n > 1 else ()
-            caches.append(ssm_mod.SSMCache(
-                conv=torch.zeros(lead + (batch, cfg.ssm_conv_width - 1,
-                                         ssm_mod.conv_dim(cfg)),
-                                 dtype=cfg.torch_dtype, device=device),
-                state=torch.zeros(lead + (batch, cfg.ssm_heads,
-                                          cfg.ssm_head_dim, cfg.ssm_state),
-                                  dtype=torch.float32, device=device)))
-        return caches
-
-    @torch.no_grad()
-    def prefill(self, params, tokens):
-        """Full prompt pass. Returns the last position's logits (B, V) and
-        the decode caches after the whole prompt (``_seed_caches``' SSM
-        branch: the forward pass's conv tail and final state)."""
-        self._require_ssm("prefill")
-        cfg = self.cfg
-        x = embed(params["embed"], tokens)
-        caches = []
+        seeds = []
         for seg, p_seg in zip(self.plan, params["segments"]):
+            mlp_fn = moe_fn if seg.mlp_kind == "moe" else None
             per_layer = []
             for j in range(seg.n):
                 p = p_seg if seg.n == 1 else layer_params(p_seg, j)
-                x, c = ssm_layer(cfg, p, x, return_cache=True)
-                per_layer.append(c)
-            caches.append(per_layer[0] if seg.n == 1
-                          else _stack_caches(per_layer))
-        return self._logits(params, x[:, -1:])[:, 0], caches
+                x, seed = _layer_forward(cfg, seg, p, x, positions,
+                                         attention=attention, mlp_fn=mlp_fn,
+                                         collect=collect)
+                per_layer.append(seed)
+            if collect:
+                seeds.append(per_layer[0] if seg.n == 1
+                             else _tree_stack(per_layer))
+        return x, aux[0], seeds
+
+    @torch.no_grad()
+    def forward(self, params, tokens):
+        """Teacher-forced logits (B, S, V) and the MoE aux loss summed over
+        the MoE layers (zero for other plans), as the reference returns
+        them (``transformer.py:368-385``). Attention is the plain
+        ``blockwise_attention`` on any device."""
+        x, aux, _ = self._run_stack(params, tokens,
+                                    attention=_plain_attention,
+                                    collect=False)
+        return self._logits(params, x), aux
+
+    def init_cache(self, batch: int, seq_len: int, *, device="cuda"):
+        """Empty decode caches for ``batch`` sequences of up to
+        ``seq_len`` positions, one per segment (``transformer.py:
+        396-401``). An SSM cache's size does not depend on ``seq_len``."""
+        device = resolve_device(device)
+        return [_empty_segment_cache(self.cfg, seg, batch, seq_len, device)
+                for seg in self.plan]
+
+    @torch.no_grad()
+    def prefill(self, params, tokens, *, seq_capacity: int,
+                last_idx: Optional[torch.Tensor] = None,
+                return_raw_kv: bool = False):
+        """Full prompt pass (``transformer.py:403-433``). Returns the
+        logits (B, V) at ``last_idx`` (default the last position) and the
+        decode caches for up to ``seq_capacity`` positions, ring buffers
+        seeded with the prompt's last positions; with ``return_raw_kv``
+        the per-segment seeds of the whole prompt instead. On CUDA the
+        GQA and hybrid attention launches ``flash_prefill`` and the SSM
+        heads ``ssd_scan``."""
+        b, s = tokens.shape
+        x, _, seeds = self._run_stack(params, tokens,
+                                      attention=_kernel_attention,
+                                      collect=True)
+        if last_idx is None:
+            last_idx = torch.full((b,), s - 1, device=tokens.device)
+        last_h = x[torch.arange(b, device=x.device), last_idx]
+        logits = self._logits(params, last_h[:, None, :])[:, 0]
+        if return_raw_kv:
+            return logits, seeds
+        return logits, self._seed_caches(seeds, b, s, seq_capacity,
+                                         tokens.device)
+
+    def _seed_caches(self, seeds, b: int, s: int, capacity: int, device):
+        """Prefill seeds into ring-buffer decode caches
+        (``transformer.py:435-481``)."""
+        cfg = self.cfg
+        caches = []
+        for seg, seed in zip(self.plan, seeds):
+            if seg.mixer == "ssm":
+                caches.append(seed)  # the forward pass's conv tail and state
+                continue
+            cap = segment_cache_capacity(cfg, seg, capacity)
+            take = min(cap, s)
+            posvec = torch.arange(s - take, s, device=device)
+            slots = posvec % cap
+            empty = _empty_segment_cache(cfg, seg, b, capacity, device)
+            if seg.mixer == "mla":
+                (ckv, krope), e = seed, empty
+                caches.append(attn.MLACache(
+                    ckv=_ring_set(e.ckv, ckv, slots, take, s, ndims=1),
+                    krope=_ring_set(e.krope, krope, slots, take, s, ndims=1),
+                    pos=_ring_set_pos(e.pos, posvec, slots)))
+                continue
+            hybrid = seg.mixer == "hybrid"
+            k, v = seed[0] if hybrid else seed
+            e = empty[0] if hybrid else empty
+            kvc = attn.KVCache(k=_ring_set(e.k, k, slots, take, s),
+                               v=_ring_set(e.v, v, slots, take, s),
+                               pos=_ring_set_pos(e.pos, posvec, slots))
+            caches.append((kvc, seed[1]) if hybrid else kvc)
+        return caches
 
     @torch.no_grad()
     def decode_step(self, params, tokens, pos, caches):
-        """tokens: (B, 1); pos: (B,) (unused by an SSM layer). Returns the
-        logits (B, V) and new caches; the input caches are not changed."""
-        self._require_ssm("decode_step")
-        del pos
+        """tokens: (B, 1); pos: (B,) absolute positions. Returns the logits
+        (B, V) and new caches (``transformer.py:483-508``); the input
+        caches are not changed."""
         cfg = self.cfg
         x = embed(params["embed"], tokens)
         new_caches = []
         for seg, p_seg, cache in zip(self.plan, params["segments"], caches):
+            if seg.n == 1:
+                x, c = _layer_decode(cfg, seg, p_seg, x, pos, cache)
+                new_caches.append(c)
+                continue
             per_layer = []
             for j in range(seg.n):
-                p = p_seg if seg.n == 1 else layer_params(p_seg, j)
-                c = cache if seg.n == 1 else ssm_mod.SSMCache(
-                    conv=cache.conv[j], state=cache.state[j])
-                h = rms_norm(p["ln1"], x, cfg.norm_eps)
-                out, c = ssm_mod.ssm_decode(cfg, p["ssm"], h, c)
-                x = x + out
+                x, c = _layer_decode(cfg, seg, layer_params(p_seg, j), x, pos,
+                                     _tree_index(cache, j))
                 per_layer.append(c)
-            new_caches.append(per_layer[0] if seg.n == 1
-                              else _stack_caches(per_layer))
+            new_caches.append(_tree_stack(per_layer))
         return self._logits(params, x)[:, 0], new_caches

@@ -209,8 +209,9 @@ class PagedEngine:
         self.model = Model(cfg)
         if {seg.mixer for seg in self.model.plan} not in ({"gqa"}, {"mla"}):
             raise ValueError(f"{cfg.arch_id}: this engine serves GQA stacks "
-                             "only, or MLA stacks only (an SSM model runs "
-                             "Model.prefill and Model.decode_step)")
+                             "only, or MLA stacks only (an SSM or hybrid "
+                             "model runs Model.prefill and "
+                             "Model.decode_step)")
         # GQA pools hold per-head (k, v); MLA pools the shared latent
         # (ckv, krope)
         self.kv_layout = KVPageLayout.from_arch(cfg)

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                               prefill_attention,
                                                prefill_attention_paged)
 from repro_torch.kernels.paged_attention import SPLIT_TOKENS, paged_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
@@ -395,6 +396,105 @@ def test_cuda_flash_prefill_raises_instead_of_falling_back(cuda):
                       torch.zeros(1, 8, 2, 160, device=cuda))
 
 
+# -- Model.prefill's attention: the engine form over a batch of sequences -----
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 1024])
+@pytest.mark.parametrize("b,s", [(4, 2048), (2, 1000), (3, 77)])
+def test_cuda_prefill_attention_matches_plain(cuda, b, s, window, dtype):
+    """hymba's widths (25 heads over 5 KV heads, Dh 64): one launch per
+    sequence, K/V read in place as a pool of B pages of S tokens, against
+    the plain ``blockwise_attention``; S 2048 takes the TMA path in bf16,
+    1000 and 77 (no multiple of the 128-key tile) the staged one."""
+    rng = np.random.default_rng(b * s)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, dtype) for shape in
+        ((b, s, 25, 64), (b, s, 5, 64), (b, s, 5, 64)))
+    before = flash_prefill.launches
+    got = prefill_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + b
+    want = tref.prefill_attention(q, k, v, window=window)
+    # bf16 roundings of the probabilities may flip: 3e-2 in both types
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_attention_raises_instead_of_falling_back(cuda):
+    q = torch.zeros(2, 8, 4, 32, device=cuda)
+    kv = torch.zeros(2, 8, 2, 32, device=cuda)
+    with pytest.raises(TypeError):  # float64 has no kernel
+        prefill_attention(q.double(), kv.double(), kv.double())
+    with pytest.raises(ValueError):  # K/V of another length
+        prefill_attention(q, kv[:, :4], kv[:, :4])
+    with pytest.raises(ValueError):  # q must be contiguous
+        prefill_attention(q.transpose(1, 2), kv, kv)
+
+
+@pytest.mark.gpu
+def test_cuda_hybrid_model_prefill_matches_cpu(cuda):
+    """Smoke hymba at 4 layers (a global layer, then a window segment of
+    3) with 10 heads over 2 KV heads, float32: ``Model.prefill`` on the
+    card launches ``flash_prefill`` once per layer and sequence and
+    ``ssd_scan`` once per layer, and its logits and ring caches equal the
+    CPU run's (plain versions) within 1e-2 of each quantity's largest
+    magnitude in the worst element and 1e-4 in the median: the two
+    devices' float32 sums differ in order, which can flip a bf16 rounding
+    of the attention (2**-8 relative) that later layers inherit; positions
+    exactly. Then 4 decode steps on each device, held alike."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import Model
+
+    cfg = dataclasses.replace(smoke_config("hymba-1.5b"), dtype="float32",
+                              logits_fp32=True, num_layers=4,
+                              global_attn_every=4, num_heads=10,
+                              num_kv_heads=2)
+    model = Model(cfg)
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 96)))
+    runs, fed = [], []  # both devices take the CPU run's greedy tokens
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        before = (flash_prefill.launches, ssd_scan.launches,
+                  paged_attention.launches)
+        logits, caches = model.prefill(p, toks.to(dev), seq_capacity=104)
+        after = (flash_prefill.launches, ssd_scan.launches,
+                 paged_attention.launches)
+        if torch.device(dev).type == "cuda":
+            assert after[0] - before[0] == cfg.num_layers * 2
+            assert after[1] - before[1] == cfg.num_layers
+            assert after[2] == before[2]
+        steps = [(logits, caches)]
+        for i in range(4):
+            if len(fed) <= i:
+                fed.append(logits[:, :cfg.vocab_size].argmax(-1))
+            logits, caches = model.decode_step(
+                p, fed[i][:, None].to(dev),
+                torch.full((2,), 96 + i, device=dev), caches)
+            steps.append((logits, caches))
+        runs.append(steps)
+    for (lc, cc), (lg, cg) in zip(*runs):
+        for a, b in zip(_cache_leaves([lc, cc]), _cache_leaves([lg, cg])):
+            b = b.cpu()
+            if a.dtype == torch.int32:
+                assert torch.equal(a, b)
+                continue
+            d = (a.float() - b.float()).abs() / a.float().abs().max()
+            assert d.max() <= 1e-2 and d.median() <= 1e-4, \
+                (float(d.max()), float(d.median()))
+
+
+def _cache_leaves(tree):
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in _cache_leaves(t)]
+    return [tree]
+
+
 # -- ssd_scan ---------------------------------------------------------------------
 
 def _ssd_inputs(b, l, h, p, g, n, seed, dev, dtype=torch.float32):
@@ -599,7 +699,8 @@ def test_cuda_paths_launch_the_kernels(cuda):
     params = init_params(cfg, seed=0, device=cuda)
     before = ssd_scan.launches
     logits, caches = Model(cfg).prefill(
-        params, torch.arange(64, device=cuda).reshape(2, 32) % 500)
+        params, torch.arange(64, device=cuda).reshape(2, 32) % 500,
+        seq_capacity=32)
     assert ssd_scan.launches - before == cfg.num_layers
     assert torch.isfinite(logits[:, :cfg.vocab_size].float()).all()
     assert caches[0].state.shape == (2, 2, cfg.ssm_heads, 32, 16)

@@ -222,7 +222,7 @@ def test_model_prefill_and_decode_match_reference(mamba_f32):
     rng = np.random.default_rng(4)
     toks = rng.integers(0, jcfg.vocab_size, (2, 64))
     wl, wc = jm.prefill(jparams, jnp.asarray(toks), seq_capacity=96)
-    gl, gc = tm.prefill(tparams, _t(toks))
+    gl, gc = tm.prefill(tparams, _t(toks), seq_capacity=96)
     np.testing.assert_allclose(_np(gl), _np(wl), **F32)
     assert len(gc) == len(wc) == 1
     np.testing.assert_allclose(_np(gc[0].state), _np(wc[0].state), **F32)
@@ -238,7 +238,7 @@ def test_model_prefill_and_decode_match_reference(mamba_f32):
                                    **F32)
     # empty caches: the reference's shapes and types
     jempty = jm.init_cache(2, 96)
-    tempty = tm.init_cache(2, device="cpu")
+    tempty = tm.init_cache(2, 96, device="cpu")
     for a, b in ((jempty[0].conv, tempty[0].conv),
                  (jempty[0].state, tempty[0].state)):
         assert tuple(b.shape) == a.shape and not b.any()
@@ -259,11 +259,11 @@ def test_prefill_decode_matches_teacher_forcing(mamba_f32):
     # pads; causal, so the padding changes no earlier position
     full, _ = model.forward(tparams, torch.cat(
         [toks, nxt, torch.zeros(2, 31, dtype=toks.dtype)], 1))
-    last, caches = model.prefill(tparams, toks)
+    last, caches = model.prefill(tparams, toks, seq_capacity=64)
     np.testing.assert_allclose(_np(last), _np(full[:, 31]), **F32)
     got, _ = model.decode_step(tparams, nxt, torch.full((2,), 32), caches)
     np.testing.assert_allclose(_np(got), _np(full[:, 32]), **F32)
-    steps = model.init_cache(2, device="cpu")
+    steps = model.init_cache(2, 64, device="cpu")
     for t in range(32):
         lg, steps = model.decode_step(tparams, toks[:, t:t + 1],
                                       torch.full((2,), t), steps)
@@ -300,8 +300,9 @@ def test_init_cache_runs_on_the_card_unless_asked(monkeypatch):
     model = Model(smoke_config("mamba2-1.3b"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        model.init_cache(1)
-    assert model.init_cache(1, device="cpu")[0].conv.device.type == "cpu"
+        model.init_cache(1, 32)
+    assert model.init_cache(1, 32, device="cpu")[0].conv.device.type == \
+        "cpu"
 
 
 def test_paged_engine_refuses_an_ssm_model():
