@@ -124,7 +124,23 @@ or the JAX package) and:
    speculative swap-outs; ``auto`` with cost victims, 188 pinned host
    pages), each with its tokens/s, TTFT, swap events and pages, memory,
    and the movers' device->host and host->device GB/s from CUDA events
-   around them, beside the copied ``NetworkModel``'s 32 GB/s;
+   around them, beside the copied ``NetworkModel``'s 32 GB/s. After the
+   cluster phase, the sim phase on the same weights: (a) the paper's
+   studies on the port's benchmarks at reduced sizes (Fig. 9's paged vs
+   ORCA oracle / pow2 / max, Fig. 10's DistKV, the batch-level baseline,
+   the NSGA-II chain comparison), with the invariants the reference's tests
+   assert of them; their rows are the virtual clock of ``CostModel``'s
+   defaults, not card times. (b) ``RouterBackend`` over a full-width OPT
+   engine of the serve geometry and a ``SimBackend`` of the same pages,
+   round robin, the serve prompts greedy: placements alternate, the
+   simulator child's logprobs are None, the engine child's kernels launch
+   40 x its decode steps and chunks. (c) the same prompts twice on a fresh
+   engine, each iteration's plan recorded as the simulator charges it and
+   each step timed: ``t_fixed``, ``c_token`` and ``c_ctx`` fitted by
+   non-negative least squares (printed beside the defaults with R^2), and
+   the simulator with the fitted terms must plan the same iterations; the
+   swap lane (``--pcie-gbps``, ``--t-swap-fixed``) fitted to the host
+   tier's timed mover calls;
 10. MLA phases: deepseek-v2-236b at full width (d 5120, 128 heads, latent
    r 512 + rope 64, q_lora 1536, 160 experts of 1536 top-6 + 2 shared, a
    dense first layer of 12288), cut to 8 of its 60 layers, bf16, served
@@ -292,6 +308,16 @@ CLUSTER_ENGINE = dict(num_pages=512, page_size=PS, max_slots=8,
                       enable_prefix_cache=True)
 CLUSTER_PREFIX, CLUSTER_WARM, CLUSTER_NEW = 512, 32, 32
 CLUSTER_SUFFIXES = [32, 64, 96, 128, 160, 192, 224, 256]
+# the sim phase: the paper's two studies at reduced sizes (the port's
+# benchmarks' run() arguments), a simulator child beside a full-width OPT
+# engine behind one router, and the CostModel terms fitted on a second
+SIM_STUDIES = {
+    "torch_serving_fig9": dict(n_requests=80),
+    "torch_serving_fig10": dict(n_requests=40),
+    "torch_chain_compare": dict(n_fleets=2, blocks=12, servers=12,
+                                generations=10),
+}
+SIM_CHILD = dict(max_running=8, max_tokens_per_iter=512)
 # the float32 gate's peer spill mode: a cold prefix page of instance 0
 # parked in instance 1's free device memory and restored on the next hit
 PEER_SPILL = dict(policy="round_robin", peer_spill=True)
@@ -1297,12 +1323,13 @@ def time_movers(engine):
 
 def mover_rates(timed, page_bytes: int) -> dict:
     """Pages, milliseconds and GB/s of each direction of ``time_movers``'s
-    record (read after a synchronize)."""
+    record (read after a synchronize), and each call's (pages, ms)."""
     out = {}
     for way, rec in timed.items():
-        pages = sum(n for n, _, _ in rec)
-        ms = sum(start.elapsed_time(end) for _, start, end in rec)
-        out[way] = dict(calls=len(rec), pages=pages, ms=ms,
+        each = [(n, start.elapsed_time(end)) for n, start, end in rec]
+        pages = sum(n for n, _ in each)
+        ms = sum(m for _, m in each)
+        out[way] = dict(calls=len(rec), pages=pages, ms=ms, each=each,
                         gb_per_s=pages * page_bytes / ms / 1e6 if ms else None)
     return out
 
@@ -1530,24 +1557,26 @@ def mla_phases(dev, seed: int):
 
 
 def dense_phases(dev, seed: int):
-    """paper-opt-13b whole under the serve traffic; granite-20b,
+    """paper-opt-13b whole under the serve traffic, then its host tier,
+    cluster and sim phases on the same weights; granite-20b,
     command-r-35b and mistral-large-123b at DENSE_LAYERS under
     SHORT_PROMPTS; then each one's float32 oracle at ORACLE_LAYERS."""
     from repro_torch.bridge import init_params
     from repro_torch.configs import get_config
     serves, oracles = {}, {}
     cfg = get_config(CLUSTER_ARCH)
-    # one set of weights for the serve phase and the cluster phase
+    # one set of weights for the serve, cluster and sim phases
     t0 = time.monotonic()
     params = init_params(cfg, seed=seed, device=dev)
     torch.cuda.synchronize()
     log(f"OPT weights on the card in {time.monotonic() - t0:.1f}s, for the "
-        "serve and the cluster phase")
+        "serve, cluster and sim phases")
     serves[cfg.arch_id] = serve_model(
         "OPT serve phase", cfg, dev, seed,
         serve_requests(cfg.vocab_size, seed), SERVE_ENGINE, params=params)
     host_tier = host_tier_measure(cfg, params, dev, seed)
     cluster = cluster_phase(cfg, params, dev, seed)
+    sim = sim_phase(cfg, params, dev, seed, host_tier)
     del params
     cluster["gate"] = cluster_gate(dev, seed + 1)
     for arch, layers in DENSE_LAYERS.items():
@@ -1560,7 +1589,7 @@ def dense_phases(dev, seed: int):
         oracles[arch] = oracle_model(f"{arch} oracle", dataclasses.replace(
             get_config(arch), num_layers=ORACLE_LAYERS), dev, seed + 1)
     return dict(serve=serves, oracle=oracles, cluster=cluster,
-                host_tier=host_tier)
+                host_tier=host_tier, sim=sim)
 
 
 # -- cluster serving on paper-opt-13b ----------------------------------------------
@@ -1860,6 +1889,424 @@ def cluster_gate(dev, seed: int):
     del params
     stats.update(phase_end("cluster gate", t0))
     return stats
+
+
+# -- sim phase: the paper's studies, an engine beside a simulator, card terms -
+
+def load_benchmark(name: str):
+    """``benchmarks/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "benchmarks" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def non_dominated(points) -> bool:
+    """No point of ``points`` (minimised objectives) dominates another."""
+    pts = np.asarray(points, float)
+    return not any(np.all(a <= b) and np.any(a < b)
+                   for i, a in enumerate(pts) for j, b in enumerate(pts)
+                   if i != j)
+
+
+def sim_studies() -> dict:
+    """The paper's serving study (Fig. 9, Fig. 10) and its chain study on
+    the port's benchmarks at SIM_STUDIES' sizes, with what the reference's
+    tests assert of the same machinery: paged beats orca-max at the
+    highest rate and orca-oracle is never worse than orca-max
+    (tests/test_simulator.py), DistKV serves every request of the regime
+    whose long contexts exceed one instance while the local baseline
+    rejects some, batch-level scheduling has a worse normalised latency
+    than iteration-level paging; every tradeoff chain covers every block,
+    the NSGA-II front is mutually non-dominated and the knee is a valid
+    chain (tests/test_chain.py). Runs on the host: no tensor, no device."""
+    from repro_torch.core.chain import (knee_chain,
+                                        latency_throughput_tradeoff,
+                                        make_fleet, nsga2)
+    from repro_torch.serving.simulator import (make_workload,
+                                               simulate_batch_level,
+                                               simulate_paged)
+    t0 = time.monotonic()
+    log("sim phase, studies: the rows below are virtual-clock results of "
+        "CostModel's defaults (the reference's assumed A100-like terms), "
+        "not times on this card")
+    fig9 = load_benchmark("torch_serving_fig9").run(
+        **SIM_STUDIES["torch_serving_fig9"])
+    for dist, rows in fig9.items():
+        assert all(r["orca-oracle"] <= r["orca-max"] + 1e-9 for r in rows), \
+            (dist, rows)
+        assert rows[-1]["vLLM-paged"] < rows[-1]["orca-max"], (dist, rows[-1])
+    fig10 = load_benchmark("torch_serving_fig10").run(
+        **SIM_STUDIES["torch_serving_fig10"])
+    exceeds = [r for r in fig10 if r["regime"] == "exceeds"]
+    assert all(r["distkv_done"] == 1.0 for r in exceeds), exceeds
+    assert any(r["local_rejected"] > 0 for r in exceeds), exceeds
+    # the pre-ORCA batch-level baseline against iteration-level paging, on
+    # tests/test_simulator.py's workload
+    paged = simulate_paged(make_workload(100, rate=4.0, seed=6),
+                           num_blocks=4096)
+    batch = simulate_batch_level(make_workload(100, rate=4.0, seed=6),
+                                 max_batch=16)
+    assert batch.mean_normalized_latency > paged.mean_normalized_latency
+    log(f"sim phase, studies: batch level "
+        f"{batch.mean_normalized_latency * 1e3:.1f} ms/token against paged "
+        f"{paged.mean_normalized_latency * 1e3:.1f} (virtual)")
+    rows, agg = load_benchmark("torch_chain_compare").run(
+        **SIM_STUDIES["torch_chain_compare"])
+    assert all(r["pareto"] > 0 for r in rows), rows
+    # tests/test_chain.py's invariants on the module itself
+    fleet = make_fleet(10, 12, seed=5)
+    res = latency_throughput_tradeoff(fleet, pop_size=30, generations=15,
+                                      seed=5)
+    assert res.chains and non_dominated(res.pareto_front)
+    for chain in res.chains:
+        covered = []
+        for s, a, b in chain:
+            assert s.start_block <= a and b <= s.end_block
+            covered.extend(range(a, b))
+        assert covered == list(range(fleet.num_blocks)), chain
+    knee = knee_chain(res)
+    assert knee is not None and knee.total_time > 0
+
+    def toy(x):
+        return np.array([float(x.sum()),
+                         float(len(x) - x.sum() + x[0] * 3)]), 0.0
+
+    front = nsga2(toy, n_var=12, pop_size=20, generations=10, seed=5).pareto
+    assert non_dominated([ind.f for ind in front])
+    seconds = time.monotonic() - t0
+    log(f"sim phase, studies: fig9 {sum(map(len, fig9.values()))} rows, "
+        f"fig10 {len(fig10)} rows, chain {len(rows)} fleets (HV paper "
+        f"{agg['hv_ga']:.1f}, realized {agg['hv_real']:.1f}, baseline "
+        f"{agg['hv_base']:.1f}); tradeoff front of {len(res.chains)} chains "
+        f"non-dominated, knee {knee.total_time:.3f} s/step (virtual); "
+        f"{seconds:.1f} s on the host")
+    return dict(fig9=fig9, fig10=fig10, chain_rows=rows, chain_mean=agg,
+                batch_level_norm_latency=batch.mean_normalized_latency,
+                paged_norm_latency=paged.mean_normalized_latency,
+                tradeoff_chains=len(res.chains), seconds=seconds)
+
+
+def sim_prompts(vocab_size: int, seed: int):
+    """Greedy prompts of SERVE_PROMPTS tokens drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab_size, n).tolist() for n in SERVE_PROMPTS]
+
+
+def mixed_router_run(cfg, params, dev, seed: int) -> dict:
+    """RouterBackend([a full-width PagedEngine of SERVE_ENGINE, a
+    SimBackend of the same pages and SIM_CHILD], round robin) through
+    LLMService: the serve prompts, greedy, SERVE_NEW new tokens each. The
+    router's clock is None (a wall-clock child), placements alternate, every
+    request ends with ``length``; the engine child's tokens lie in the
+    vocabulary with finite logprobs, the simulator child's have none; the
+    engine's kernels launch layers x its decode steps and chunks."""
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.serving.api import LLMService, SamplingParams
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+    from repro_torch.serving.router import RouterBackend
+    from repro_torch.serving.simulator import SimBackend
+
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    engine = PagedEngine(cfg, params, EngineConfig(**SERVE_ENGINE, seed=seed),
+                         device=dev)
+    child = SimBackend(num_blocks=SERVE_ENGINE["num_pages"],
+                       block_size=SERVE_ENGINE["page_size"], **SIM_CHILD)
+    router = RouterBackend([engine, child], policy="round_robin")
+    assert router.clock() is None
+    finite = watch_finite([engine], cfg.vocab_size, dev)
+    svc = LLMService(router)
+    sp = SamplingParams(max_new_tokens=SERVE_NEW)
+    ids = [svc.submit(p, sp) for p in sim_prompts(cfg.vocab_size, seed)]
+    paged_attention.launches = flash_prefill.launches = 0
+    t_run = time.monotonic()
+    while svc.pending:
+        svc.poll()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t_run
+    launches, prefill_launches = paged_attention.launches, \
+        flash_prefill.launches
+    unwatch([engine])
+    outs = [svc._take_result(rid) for rid in ids]
+    placed = [o.metrics.instance_id for o in outs]
+    assert placed == [i % 2 for i in range(len(outs))], placed
+    for o in outs:
+        (s,) = o.samples
+        assert s.finish_reason == "length" and \
+            len(s.token_ids) == SERVE_NEW, s
+        if o.metrics.instance_id == 0:
+            assert all(0 <= x < cfg.vocab_size for x in s.token_ids)
+            assert all(math.isfinite(x) for x in s.token_logprobs)
+        else:
+            assert s.token_logprobs is None, s
+    assert bool(finite), "sim phase, mixed router: a logit was not finite"
+    L = cfg.num_layers
+    assert engine.decode_steps > 0 and engine.prefill_chunks > 0
+    assert launches == L * engine.decode_steps, (launches, engine.decode_steps)
+    assert prefill_launches == L * engine.prefill_chunks, \
+        (prefill_launches, engine.prefill_chunks)
+    mine = [o for o in outs if o.metrics.instance_id == 0]
+    ttfts = [o.metrics.ttft for o in mine]
+    n_tokens = sum(len(o.token_ids) for o in mine)
+    st = dict(requests=len(outs), engine_requests=len(mine),
+              engine_tokens=n_tokens, wall_s=wall,
+              engine_tokens_per_s=n_tokens / wall,
+              ttft_mean_s=sum(ttfts) / len(ttfts), ttft_max_s=max(ttfts),
+              engine_iterations=engine.iterations,
+              sim_iterations=child.iterations,
+              decode_steps=engine.decode_steps,
+              prefill_chunks=engine.prefill_chunks, launches=launches,
+              prefill_launches=prefill_launches,
+              peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del engine, child, router, svc, outs, mine
+    st["seconds"] = phase_end("sim phase, mixed router", t0)["seconds"]
+    log(f"sim phase, mixed router: {st['engine_tokens']} engine tokens in "
+        f"{wall:.2f}s ({st['engine_tokens_per_s']:.1f} tokens/s), TTFT mean "
+        f"{st['ttft_mean_s'] * 1e3:.1f} ms, max {st['ttft_max_s'] * 1e3:.1f}"
+        f" ms; {st['engine_iterations']} engine / {st['sim_iterations']} "
+        f"simulator iterations; paged_attention launches {launches} = {L} x "
+        f"{st['decode_steps']}, flash_prefill {prefill_launches} = {L} x "
+        f"{st['prefill_chunks']}; max_memory_allocated "
+        f"{st['peak_gib']:.2f} GiB")
+    return st
+
+
+def plan_spy(backend, cost):
+    """Record each plan of ``backend``'s scheduler as ``SimBackend.step``
+    charges it: (tokens, decodes, chunks, attention reads), the reads being
+    each decode's context and ``cost.prefill_read_tokens`` of each chunk
+    (no lease here, so no remote reads). ``del backend.scheduler.schedule``
+    takes the spy off."""
+    rec = []
+    schedule = backend.scheduler.schedule
+
+    def spied():
+        plan = schedule()
+        reads = sum(r.context_len for r in plan.decode) + sum(
+            cost.prefill_read_tokens(c.start, c.length) for c in plan.chunks)
+        rec.append((plan.token_count(), len(plan.decode), len(plan.chunks),
+                    reads))
+        return plan
+
+    backend.scheduler.schedule = spied
+    return rec
+
+
+def drive(backend, prompts, timed: bool):
+    """The prompts as requests at t = 0 (SERVE_NEW greedy tokens each),
+    stepped to the end; with ``timed``, each step's wall seconds, closed by
+    a synchronize."""
+    from repro_torch.core.scheduling.request import Request
+    for i, p in enumerate(prompts):
+        backend.add_request(Request(i, 0.0, list(p),
+                                    max_new_tokens=SERVE_NEW))
+    seconds = []
+    while backend.has_work:
+        if timed:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        backend.step()
+        if timed:
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+    return seconds
+
+
+def fit_cost_model(cfg, params, dev, seed: int) -> dict:
+    """The card's own CostModel terms: the serve prompts (greedy) on a
+    fresh full-width PagedEngine of SERVE_ENGINE, twice (the first pass
+    warms the engine), each plan recorded as the simulator charges it and
+    each step timed; t_fixed, c_token and c_ctx fitted to the second pass by
+    non-negative least squares. Then the same requests on the port's
+    SimBackend with the engine's scheduler settings and the fitted terms:
+    it must plan the same iterations."""
+    from scipy.optimize import nnls
+
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+    from repro_torch.serving.simulator import CostModel, SimBackend
+
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    default = CostModel()
+    prompts = sim_prompts(cfg.vocab_size, seed + 1)
+    engine = PagedEngine(cfg, params, EngineConfig(**SERVE_ENGINE, seed=seed),
+                         device=dev)
+    paged_attention.launches = flash_prefill.launches = 0
+    passes = []
+    for _ in range(2):
+        plans = plan_spy(engine, default)
+        seconds = drive(engine, prompts, timed=True)
+        del engine.scheduler.schedule  # the spy holds the plans
+        assert len(seconds) == len(plans)
+        passes.append(dict(plans=plans, seconds=seconds))
+    L = cfg.num_layers
+    launches, prefill_launches = paged_attention.launches, \
+        flash_prefill.launches
+    assert launches == L * engine.decode_steps, launches
+    assert prefill_launches == L * engine.prefill_chunks, prefill_launches
+    assert passes[0]["plans"] == passes[1]["plans"]
+    a = engine.allocator
+    assert a.num_free == a.num_blocks
+    del engine, a
+    plans, seconds = passes[1]["plans"], np.array(passes[1]["seconds"])
+    A = np.array([[1.0, tok, reads] for tok, _, _, reads in plans])
+    scale = A.max(axis=0)
+    coef, _ = nnls(A / scale, seconds)
+    t_fixed, c_token, c_ctx = (coef / scale).tolist()
+    pred = A @ (coef / scale)
+    r2 = 1.0 - float(((seconds - pred) ** 2).sum()) / \
+        float(((seconds - seconds.mean()) ** 2).sum())
+    fitted = CostModel(t_fixed=t_fixed, c_token=c_token, c_ctx=c_ctx)
+    # a reading the CostModel cannot express: the engine runs one forward
+    # for its decodes and one per chunk, so a fixed cost per forward in
+    # place of one per iteration
+    F = np.array([[n_chunks + (n_dec > 0), tok, reads]
+                  for tok, n_dec, n_chunks, reads in plans], float)
+    f_scale = F.max(axis=0)
+    f_coef, _ = nnls(F / f_scale, seconds)
+    t_forward, f_token, f_ctx = (f_coef / f_scale).tolist()
+    f_r2 = 1.0 - float(((seconds - F @ (f_coef / f_scale)) ** 2).sum()) / \
+        float(((seconds - seconds.mean()) ** 2).sum())
+
+    # the replay: the same requests on the simulator, the fitted terms
+    child = SimBackend(num_blocks=SERVE_ENGINE["num_pages"],
+                       block_size=SERVE_ENGINE["page_size"],
+                       max_running=SERVE_ENGINE["max_slots"],
+                       max_tokens_per_iter=SERVE_ENGINE["max_tokens_per_iter"],
+                       cost=fitted)
+    sim_plans = plan_spy(child, fitted)
+    drive(child, prompts, timed=False)
+    assert sim_plans == plans, "the simulator planned other iterations"
+    # the iterations apart: decode-only ones, and those that ran chunks
+    # (their excess over the decode-only median, per chunk token)
+    decode_only = [s for (_, _, n_chunks, _), s in zip(plans, seconds)
+                   if n_chunks == 0]
+    floor = statistics.median(decode_only) if decode_only else 0.0
+    with_chunks = [(tok - n_dec, s) for (tok, n_dec, n_chunks, _), s
+                   in zip(plans, seconds) if n_chunks]
+    st = dict(iterations=len(plans), t_fixed=t_fixed, c_token=c_token,
+              c_ctx=c_ctx, r2=r2, default=dataclasses.asdict(default),
+              wall_s=float(seconds.sum()), sim_makespan_s=child.clock(),
+              warm_wall_s=float(sum(passes[0]["seconds"])),
+              decode_only_iterations=len(decode_only),
+              decode_only_ms_median=float(floor) * 1e3
+              if decode_only else None,
+              chunk_iterations=len(with_chunks),
+              chunk_iteration_ms_median=float(statistics.median(
+                  s for _, s in with_chunks)) * 1e3,
+              chunk_tokens=sum(n for n, _ in with_chunks),
+              chunk_excess_us_per_token=float(
+                  sum(s - floor for _, s in with_chunks)
+                  / sum(n for n, _ in with_chunks)) * 1e6,
+              per_forward=dict(t_forward=t_forward, c_token=f_token,
+                               c_ctx=f_ctx, r2=f_r2),
+              rows=[[*plan, s] for plan, s in zip(plans, seconds.tolist())],
+              tokens=int(A[:, 1].sum()), reads=int(A[:, 2].sum()),
+              launches=launches, prefill_launches=prefill_launches,
+              peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    st["seconds"] = phase_end("sim phase, CostModel fit", t0)["seconds"]
+    log(f"sim phase, CostModel fit: {len(plans)} iterations of "
+        f"{cfg.arch_id} {cfg.num_layers}L d{cfg.d_model} (R^2 {r2:.4f}): "
+        f"t_fixed {t_fixed * 1e3:.3f} ms "
+        f"(default {default.t_fixed * 1e3:.3f}), c_token "
+        f"{c_token * 1e6:.3f} us (default {default.c_token * 1e6:.3f}), "
+        f"c_ctx {c_ctx * 1e9:.3f} ns (default {default.c_ctx * 1e9:.3f}); "
+        f"{st['decode_only_iterations']} decode-only iterations, median "
+        f"{fmt_ms(st['decode_only_ms_median'])}; {st['chunk_iterations']} "
+        f"with chunks ({st['chunk_tokens']} chunk tokens), median "
+        f"{st['chunk_iteration_ms_median']:.3f} ms, "
+        f"{st['chunk_excess_us_per_token']:.2f} us a chunk token above the "
+        f"decode-only median; per forward instead of per iteration: "
+        f"{t_forward * 1e3:.3f} ms a forward, {f_token * 1e6:.3f} us a "
+        f"token, {f_ctx * 1e9:.3f} ns a read (R^2 {f_r2:.4f}); launches "
+        f"paged_attention {launches}, "
+        f"flash_prefill {prefill_launches} over both passes; the simulator with these terms planned the same {len(plans)} "
+        f"iterations, makespan {st['sim_makespan_s']:.3f} s (virtual) "
+        f"against the engine's {st['wall_s']:.3f} s of timed steps")
+    return st
+
+
+def fmt_gbps(x) -> str:
+    return "not measured" if x is None else f"{x:.1f}"
+
+
+def swap_lane(host_tier: dict) -> dict:
+    """The swap lane the OPT host tier's movers imply, in the launcher's
+    units: each timed mover call (pages of ``page_bytes``, ms) of every
+    mode, each way and both, fitted as ``t_swap_fixed + bytes * 8 /
+    (pcie_gbps * 1e9)`` (``NetworkModel.swap_time``) by non-negative least
+    squares where the calls have two sizes or more, else the aggregate
+    rate alone; and each way's aggregate GB/s."""
+    from scipy.optimize import nnls
+
+    from repro_torch.core.distkv.netmodel import NetworkModel
+    calls = {"out": [], "in": []}
+    page_bytes = None
+    for st in host_tier["modes"].values():
+        if st["movers"] is None:
+            continue
+        page_bytes = st["page_bytes"]
+        for way, r in st["movers"].items():
+            calls[way] += r["each"]
+    default = NetworkModel()
+    out = dict(page_bytes=page_bytes, default_pcie_gbps=default.pcie_gbps,
+               default_t_swap_fixed=default.t_swap_fixed)
+    for way, rec in (*calls.items(), ("both", calls["out"] + calls["in"])):
+        pages = sum(n for n, _ in rec)
+        ms = sum(m for _, m in rec)
+        row = dict(calls=len(rec), pages=pages, ms=ms,
+                   gb_per_s=pages * page_bytes / ms / 1e6 if ms else None,
+                   t_swap_fixed=None, pcie_gbps=None)
+        if len({n for n, _ in rec}) >= 2:  # two sizes separate the terms
+            A = np.array([[1.0, n * page_bytes] for n, _ in rec])
+            scale = A.max(axis=0)
+            coef, _ = nnls(A / scale, np.array([m * 1e-3 for _, m in rec]))
+            t_fix, s_per_byte = coef / scale
+            row["t_swap_fixed"] = float(t_fix)
+            if s_per_byte > 0:
+                row["pcie_gbps"] = 8.0 / (float(s_per_byte) * 1e9)
+        elif row["gb_per_s"]:
+            row["pcie_gbps"] = row["gb_per_s"] * 8.0
+        out[way] = row
+    both = out["both"]
+    log("sim phase, swap lane from the OPT host tier's movers: "
+        + "; ".join(f"{way} {r['calls']} calls, {r['pages']} pages, "
+                    f"{fmt_gbps(r['gb_per_s'])} GB/s aggregate, fitted "
+                    f"{fmt_gbps(r['pcie_gbps'])} Gb/s"
+                    + (f" + {r['t_swap_fixed'] * 1e6:.1f} us a call"
+                       if r["t_swap_fixed"] is not None else
+                       " (one call size: no fixed term)")
+                    for way, r in out.items() if isinstance(r, dict))
+        + f"; NetworkModel's defaults --pcie-gbps {default.pcie_gbps:.0f} "
+          f"--t-swap-fixed {default.t_swap_fixed:g}, this card's "
+          f"--pcie-gbps {fmt_gbps(both['pcie_gbps'])}"
+        + (f" --t-swap-fixed {both['t_swap_fixed']:.3g}"
+           if both["t_swap_fixed"] is not None else ""))
+    return out
+
+
+def sim_phase(cfg, params, dev, seed: int, host_tier: dict) -> dict:
+    """The simulator, the batch-level baseline and chain selection on the
+    card's machine, on the OPT serve phase's weights: (a) the paper's
+    studies (``sim_studies``); (b) one router over a full-width OPT engine
+    and a simulator child (``mixed_router_run``); (c) the card's own
+    CostModel terms (``fit_cost_model``) and the swap lane the host tier's
+    movers imply (``swap_lane``)."""
+    t0 = time.monotonic()
+    studies = sim_studies()
+    router = mixed_router_run(cfg, params, dev, seed)
+    fit = fit_cost_model(cfg, params, dev, seed)
+    lane = swap_lane(host_tier)
+    return dict(studies=studies, router=router, fit=fit, swap_lane=lane,
+                launches=router["launches"] + fit["launches"],
+                prefill_launches=router["prefill_launches"]
+                + fit["prefill_launches"], seconds=time.monotonic() - t0)
 
 
 # -- mamba2 phase -----------------------------------------------------------------
@@ -2901,14 +3348,15 @@ def main() -> int:
     mla = mla_phases(dev, seed=11)
     cluster = dense["cluster"]
     host_tiers = [slice1["host_tier"], dense["host_tier"]]
+    sim = dense["sim"]
     paged, paged_shapes = timing_phase(
         dev, seed=2, launches=serve["launches"] + cluster["launches"]
-        + sum(h["launches"] for h in host_tiers))
+        + sum(h["launches"] for h in host_tiers) + sim["launches"])
     flash, flash_shapes = flash_timing(
         dev, seed=5,
         launches=serve["prefill_launches"] + cluster["prefill_launches"]
         + sum(h["prefill_launches"] for h in host_tiers)
-        + hymba["launches"]["flash_prefill"])
+        + sim["prefill_launches"] + hymba["launches"]["flash_prefill"])
     ssd, ssd_shapes = ssd_timing(
         dev, seed=6,
         launches=mamba["launches"] + hymba["launches"]["ssd_scan"])
@@ -2973,6 +3421,19 @@ def main() -> int:
                 rates.items() if r["ms"]))
     log(f"host tier phase (danube float32): "
         f"{slice1['host_tier']['seconds']:.1f} s")
+    fit, lane = sim["fit"], sim["swap_lane"]["both"]
+    log(f"sim phase on {card}: {sim['seconds']:.1f} s (studies "
+        f"{sim['studies']['seconds']:.1f} s on the host); mixed router engine "
+        f"child {sim['router']['engine_tokens_per_s']:.1f} tokens/s, TTFT "
+        f"mean {sim['router']['ttft_mean_s'] * 1e3:.1f} ms, "
+        f"max_memory_allocated {sim['router']['peak_gib']:.2f} GiB; "
+        f"CostModel of full-width paper-opt-13b: t_fixed "
+        f"{fit['t_fixed'] * 1e3:.3f} ms, c_token {fit['c_token'] * 1e6:.3f} "
+        f"us, c_ctx {fit['c_ctx'] * 1e9:.3f} ns (R^2 {fit['r2']:.4f}, "
+        f"{fit['iterations']} iterations); swap lane "
+        f"{fmt_gbps(lane['pcie_gbps'])} Gb/s, t_swap_fixed "
+        + (f"{lane['t_swap_fixed'] * 1e6:.1f} us" if lane["t_swap_fixed"]
+           is not None else "not separable"))
     log(f"mamba2 phase on {card}: prefill {mamba['prefill_ms']:.1f} ms "
         f"for {MAMBA_BATCH} x {MAMBA_PROMPT} tokens, decode "
         f"{mamba['decode_tokens_per_s']:.1f} tokens/s")

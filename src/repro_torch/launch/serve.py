@@ -1,11 +1,13 @@
-"""Serving launcher: ``LLMService`` over the port's ``PagedEngine`` with a
-synthetic open-loop request stream (the engine path of
+"""Serving launcher: ``LLMService`` over either backend, the port's
+``PagedEngine`` (wall clock) or the cost-model ``SimBackend`` (virtual
+clock), with a synthetic open-loop request stream (the port of
 ``repro.launch.serve``). ``--instances N`` puts a cluster ``RouterBackend``
-in front of N engines that share one set of weights on the card
+in front of N instances; engines share one set of weights on the card
 (placement via ``--policy``, cross-instance prefix sharing via
 ``--prefix-share``), and ``--roles`` splits them into prefill and decode
-instances. Runs on the GPU; ``--device cpu`` runs the plain PyTorch path on
-the CPU.
+instances. The engine runs on the GPU; ``--device cpu`` runs the plain
+PyTorch path on the CPU. ``--backend sim`` holds no tensor and needs no
+device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --rate 4
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
@@ -15,6 +17,11 @@ the CPU.
       --roles 1p1d --handoff-mode zero_copy
   PYTHONPATH=src python -m repro_torch.launch.serve --pages 64 \
       --host-pages 128 --swap-mode swap --speculative-swap --trace t.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --backend sim \
+      --requests 400 --instances 4 --policy prefix_affinity \
+      --prefix-cache --prefix-share
+  PYTHONPATH=src python -m repro_torch.launch.serve --backend sim \
+      --requests 200 --roles 2p2d --handoff-mode auto
 
 The default is h2o-danube-1.8b at full width with random weights from
 ``--seed``; ``--reduced`` serves its smoke config. Zero-copy modes need a
@@ -22,8 +29,11 @@ config without a sliding window (danube's is 4096 tokens). ``--host-pages``
 gives each engine a pinned host tier for swap-to-host preemption
 (``--swap-mode``, ``--victim-policy``, ``--speculative-swap``) and
 prefix-cache spill (``--cache-spill-pages``); ``--trace`` and
-``--metrics-csv`` turn telemetry on and export it after the run. The
-simulator backend and its flags come with a later slice of the port.
+``--metrics-csv`` turn telemetry on and export it after the run.
+``--backend sim`` prints the reference launcher's numbers for the same
+flags (its prompts draw from a vocabulary of 32,000); ``--swap-overlap``
+and the swap-lane calibration ``--pcie-gbps`` / ``--t-swap-fixed`` reach
+its PCIe lane.
 """
 
 from __future__ import annotations
@@ -43,14 +53,30 @@ from repro_torch.serving.api import LLMService, SamplingParams
 from repro_torch.serving.disagg import HANDOFF_MODES, parse_role_spec
 from repro_torch.serving.engine import EngineConfig, PagedEngine
 from repro_torch.serving.router import POLICIES, SHARE_MODES, RouterBackend
+from repro_torch.serving.simulator import SimBackend
 
 
-def build_instance(args, cfg, params, device) -> PagedEngine:
+def build_instance(args, cfg, params, device):
+    """One ``SimBackend`` (``--backend sim``; ``cfg``, ``params`` and
+    ``device`` are None) or one ``PagedEngine``."""
+    telemetry = bool(args.trace or args.metrics_csv)
+    if args.backend == "sim":
+        return SimBackend(num_blocks=args.pages, block_size=args.page_size,
+                          max_running=args.slots,
+                          prefix_cache=args.prefix_cache,
+                          chunk_policy=args.chunk_policy,
+                          host_blocks=args.host_pages,
+                          swap_mode=args.swap_mode,
+                          victim_policy=args.victim_policy,
+                          swap_overlap=args.swap_overlap,
+                          speculative_swap=args.speculative_swap,
+                          cache_spill_pages=args.cache_spill_pages,
+                          net=build_netmodel(args), trace=telemetry)
     return PagedEngine(cfg, params, EngineConfig(
         num_pages=args.pages, page_size=args.page_size,
         max_slots=args.slots, enable_prefix_cache=args.prefix_cache,
         chunk_policy=args.chunk_policy,
-        enable_telemetry=bool(args.trace or args.metrics_csv),
+        enable_telemetry=telemetry,
         host_pages=args.host_pages, swap_mode=args.swap_mode,
         victim_policy=args.victim_policy,
         speculative_swap=args.speculative_swap,
@@ -59,11 +85,21 @@ def build_instance(args, cfg, params, device) -> PagedEngine:
 
 def build_netmodel(args):
     """No --net-gbps: network accounting stays off for copy and zero_copy
-    alike; share-mode auto needs a model to decide."""
-    if args.net_gbps is None and args.share_mode != "auto":
+    alike. Share-mode auto needs a model to decide, and an explicit
+    --pcie-gbps or --t-swap-fixed forces one, so that the calibration
+    reaches a simulator's swap lane."""
+    calibrated = args.pcie_gbps is not None or args.t_swap_fixed is not None
+    if args.net_gbps is None and not calibrated \
+            and args.share_mode != "auto":
         return None
-    return NetworkModel(gbps=args.net_gbps) if args.net_gbps is not None \
-        else NetworkModel()
+    kw = {}
+    if args.net_gbps is not None:
+        kw["gbps"] = args.net_gbps
+    if args.pcie_gbps is not None:
+        kw["pcie_gbps"] = args.pcie_gbps
+    if args.t_swap_fixed is not None:
+        kw["t_swap_fixed"] = args.t_swap_fixed
+    return NetworkModel(**kw)
 
 
 def parse_roles_arg(args):
@@ -84,8 +120,9 @@ def parse_roles_arg(args):
 
 
 def build_backend(args):
-    """One engine, or a RouterBackend over --instances engines built on
-    one ``params`` dict."""
+    """One instance, or a RouterBackend over --instances of them; engines
+    are built on one ``params`` dict. The simulator resolves no device and
+    draws no weights."""
     if args.prefix_share and not args.prefix_cache:
         raise SystemExit("--prefix-share requires --prefix-cache")
     if args.prefix_share and args.instances <= 1:
@@ -97,9 +134,12 @@ def build_backend(args):
     roles = parse_roles_arg(args)
     if roles is not None:
         args.instances = len(roles)
-    device = resolve_device(args.device)
-    cfg = smoke_config(args.arch) if args.reduced else get_config(args.arch)
-    params = init_params(cfg, seed=args.seed, device=device)
+    cfg = params = device = None
+    if args.backend == "engine":
+        device = resolve_device(args.device)
+        cfg = smoke_config(args.arch) if args.reduced \
+            else get_config(args.arch)
+        params = init_params(cfg, seed=args.seed, device=device)
     if args.instances <= 1:
         return build_instance(args, cfg, params, device)
     children = [build_instance(args, cfg, params, device)
@@ -117,6 +157,10 @@ def build_backend(args):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--backend", choices=("engine", "sim"), default="engine",
+                    help="the port's PagedEngine (wall clock) or the "
+                         "cost-model SimBackend (virtual clock) — same "
+                         "LLMService API")
     ap.add_argument("--arch", choices=ARCH_IDS, default="h2o-danube-1.8b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
@@ -159,11 +203,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "memory pressure: lifo (newest), fifo (oldest), "
                          "lru (least recently scheduled), or cost (cheapest "
                          "modeled eviction per freed page)")
+    ap.add_argument("--swap-overlap", action="store_true",
+                    help="sim backend: double-buffer PCIe swap DMAs against "
+                         "each iteration's compute (only the surplus past "
+                         "the compute time is charged)")
     ap.add_argument("--speculative-swap", action="store_true",
                     help="issue decode swap-outs one iteration early when "
                          "free pages trend under the decodes' growth, the "
                          "copy overlapping that iteration's compute, and "
                          "cancel if pressure recedes")
+    ap.add_argument("--pcie-gbps", type=float, default=None,
+                    help="swap-lane calibration: PCIe bandwidth for the "
+                         "NetworkModel's device<->host swap time (default: "
+                         "the model's 256 Gb/s)")
+    ap.add_argument("--t-swap-fixed", type=float, default=None,
+                    help="swap-lane calibration: per-batched-DMA setup time "
+                         "in seconds (default: the model's 20us)")
     ap.add_argument("--cache-spill-pages", type=int, default=0,
                     help="host pages the prefix cache may use to spill "
                          "cold cached prefixes instead of evicting them "
@@ -201,10 +256,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "cost decision)")
     ap.add_argument("--net-gbps", type=float, default=None,
                     help="interconnect bandwidth for the network cost "
-                         "model (engines record modeled copy and lease "
-                         "time as net_time; default: no network "
-                         "accounting, except share-mode auto which needs "
-                         "the model)")
+                         "model (the sim backend charges payload copies "
+                         "and lease RPCs, engines record them as net_time; "
+                         "default: no network accounting, except "
+                         "share-mode auto which needs the model)")
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="enable telemetry and export a Chrome/Perfetto "
                          "trace-event JSON (open in ui.perfetto.dev or "
@@ -221,7 +276,8 @@ def main(argv=None):
     backend = build_backend(args)
     svc = LLMService(backend)
     kids = getattr(backend, "children", [backend])
-    vocab = kids[0].cfg.vocab_size
+    sim = args.backend == "sim"
+    vocab = 32_000 if sim else kids[0].cfg.vocab_size
 
     rng = np.random.default_rng(args.seed)
     arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
@@ -238,21 +294,22 @@ def main(argv=None):
 
     t0 = time.monotonic()
     while svc.pending:
-        now = time.monotonic() - t0
+        now = None if sim else time.monotonic() - t0
         for ch in svc.poll(now):
             if ch.finished:
                 t = ch.time if ch.time is not None else now
                 print(f"[{t:7.2f}s] req {ch.request_id} done: "
                       f"{ch.n_generated} tokens ({ch.finish_reason})")
-        if not backend.has_work and svc.pending:
+        if not sim and not backend.has_work and svc.pending:
             time.sleep(0.005)  # wait for the next wall-clock arrival
 
     stats = svc.stats()
-    dt = time.monotonic() - t0
+    dt = stats.makespan if sim else time.monotonic() - t0
+    where = "" if sim else f" on {kids[0].device}"
     print(f"served {stats.n_finished}/{stats.n_requests} requests, "
           f"{stats.total_tokens} tokens in {dt:.1f}s "
           f"({stats.total_tokens / max(dt, 1e-9):.1f} tok/s, "
-          f"{backend.iterations} iterations) on {kids[0].device}; "
+          f"{backend.iterations} iterations){where}; "
           f"mean ttft {stats.mean_ttft * 1e3:.1f}ms, "
           f"mean norm-lat {stats.mean_normalized_latency:.3f}s/tok")
     if stats.p99_tbt != float("inf"):

@@ -15,13 +15,14 @@ modeled on vLLM's ``LLM`` / ``SamplingParams`` split:
   (iterator driven by backend ``step()``), and ``submit``/``poll`` for
   open-loop arrival traces (the Fig. 9/10 benchmarks).
 
-Backends implement the :class:`ServingBackend` protocol. In this package
-that is ``PagedEngine`` (wall-clock or caller-supplied time), and a whole
-cluster: ``repro_torch.serving.router.RouterBackend`` multiplexes N engines
-behind this protocol, reporting per-request placement via
-``RequestMetrics.instance_id`` and per-instance aggregates via
-``ServiceStats.per_instance``. The cost-model simulator that ``repro`` puts
-behind the same protocol comes with a later slice of the port.
+Both backends implement the same :class:`ServingBackend` protocol: the real
+``PagedEngine`` (wall-clock or caller-supplied time) and the cost-model
+``SimBackend`` (virtual clock) from ``repro_torch.serving.simulator``.
+Benchmarks and examples pick a backend by flag, not by import. A whole
+cluster is also just a backend: ``repro_torch.serving.router.RouterBackend``
+multiplexes N child instances behind this protocol (engines, simulators or
+both), reporting per-request placement via ``RequestMetrics.instance_id``
+and per-instance aggregates via ``ServiceStats.per_instance``.
 """
 
 from __future__ import annotations

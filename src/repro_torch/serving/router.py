@@ -3,15 +3,16 @@
 The paper's serving endgame (InfiniteLLM-style cluster serving) is many LLM
 service instances behind one front door. :class:`RouterBackend` is that
 front door as a *backend*: it implements the same ``ServingBackend``
-protocol as ``PagedEngine``, over N child backends, so ``LLMService``
-drives a whole cluster exactly like a single instance.
+protocol as ``PagedEngine`` and ``SimBackend``, over N child backends
+(engine or sim, mixable), so ``LLMService`` drives a whole cluster
+exactly like a single instance.
 
 A copy of ``repro.serving.router`` with its imports changed. The children
-here are the port's ``PagedEngine``s; the reference's cost-model
-``SimBackend`` is not ported yet. The branches that serve a simulator
-child (a virtual clock, payload-less pages) stay as they are: each is
-guarded by ``getattr`` / ``hasattr`` on the child, so engine children
-never take them.
+are the port's ``PagedEngine``s, its cost-model ``SimBackend``s
+(``repro_torch.serving.simulator``), or both. The branches guarded by
+``getattr`` / ``hasattr`` on a child are live paths: they serve a
+simulator child (a virtual clock, payload-less pages that an engine peer
+neither adopts nor leases) beside engine children.
 
 Placement is pluggable (``POLICIES``):
 
@@ -65,7 +66,7 @@ step that moves finished prompt KV to a decode instance (migrated payloads
 or a zero-copy ``RemoteLease``, ``handoff_mode`` choosing per request in
 ``auto``). See ``serving/disagg.py`` for the full design.
 
-Clock semantics: with all-virtual children (simulators) the router is
+Clock semantics: with all-virtual children (SimBackend) the router is
 event-driven — each ``step`` advances the laggard instance, and ``clock()``
 reports the cluster frontier, so policy sweeps over many instances run in
 milliseconds. With any wall-clock child, ``step`` fans out to every
@@ -195,7 +196,8 @@ class _AggregateCacheStats:
 class RouterBackend:
     """ServingBackend over N child backends with pluggable placement.
 
-    ``children`` are fully-constructed backends (``PagedEngine``s). ``policy`` is a name from :data:`POLICIES` or
+    ``children`` are fully-constructed backends (``PagedEngine`` /
+    ``SimBackend``, mixable). ``policy`` is a name from :data:`POLICIES` or
     a policy object with ``choose(req, children) -> int``.
 
     ``prefix_share=True`` enables cross-instance prefix sharing through the

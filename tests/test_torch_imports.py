@@ -1,7 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``, and
-its entry points refuse to run on a machine without a GPU unless the caller
-asks for the CPU."""
+"""The port stands alone: no module of ``src/repro_torch/``, no
+``benchmarks/torch_*.py`` and not ``chip_smoke.py`` imports JAX or anything
+of the JAX package ``repro``, and its entry points refuse to run on a
+machine without a GPU unless the caller asks for the CPU."""
 
 import ast
 import dataclasses
@@ -12,6 +12,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    sorted((ROOT / "benchmarks").glob("torch_*.py")) + \
     [ROOT / "chip_smoke.py"]
 
 
