@@ -25,6 +25,10 @@ or the JAX package) and:
    and bfloat16 x. Both attention kernels also at the GQA groups of the
    configs served below that lie outside {1, 2, 4, 8}: G 5, 6, 12 and 48
    at head_dim 128, float32 and bfloat16, window none and 24.
+   ``prefill_attention(causal=False)`` (an encoder's self-attention and
+   a decoder's cross-attention) at S = Skv in {64, 1000, 1024} and S in
+   {1, 64, 130} over Skv in {16, 1000, 1024}, at seamless-m4t's widths
+   (G 1, Dh 64) and internvl2's (G 6, Dh 128), float32 and bfloat16.
    ``paged_attention``'s (m, l) as the zero-copy decode uses them, at
    danube's widths and at G 1 (OPT), 5 and 48, float32 and bfloat16: a
    local and a leased context in two pools (several splits, rows with
@@ -85,6 +89,23 @@ or the JAX package) and:
    deepseek-v2-236b's latent ring at full width and 2 layers, float32:
    ``Model.prefill`` and 16 greedy ``decode_step``s through ``mla_decode``
    against ``Model.forward`` by the oracle phase's rule;
+   The encoder-decoder and media families, whole: seamless-m4t-medium
+   (12 encoder + 12 decoder layers, d 1024, 16 heads, bf16): 4 requests
+   of 1024 encoder positions, the first 512 of them audio frame
+   embeddings (normal x 0.02 from a seeded ``torch.Generator``), and a
+   64-token decoder prompt through ``Model.prefill`` (``flash_prefill``
+   launched (12 + 2 x 12) x 4 = 144 times: the encoder's non-causal
+   self-attention, each decoder layer's self- and cross-attention), then
+   64 greedy ``decode_step``s; its float32 oracle at full width: the ring's
+   greedy tokens against ``Model.forward``'s argmax over prompt +
+   generated tokens with the same encoder input, but at a near-tie.
+   internvl2-26b (48 layers, d 6144, 48 heads over 8 KV heads, ~38.6 GB
+   bf16): ``Model.prefill`` of 4 x 1024 positions, the first 256 patch
+   embeddings (``flash_prefill`` 48 x 4 = 192 times), 32 greedy
+   ``decode_step``s; the same weights serve 4 short text-only requests on
+   the paged engine; then its float32 oracles at 2 layers (the ring with
+   patches, and the engine). Each prints its prefill ms, decode tokens/s,
+   ``max_memory_allocated`` and seconds;
 8. MoE phases: llama4-scout-17b-a16e at full width (d 5120, 40 heads over
    8 KV heads, 16 experts of 8192 + 1 shared, top-1, capacity factor
    1.25), cut to 12 of its 48 layers, bf16, served as in the serve phase;
@@ -160,10 +181,14 @@ or the JAX package) and:
    kernels of hymba's prefill at its shape (``prefill_attention``: 4
    launches over 4 x 2048 tokens, window 1024 and none, beside SDPA and
    the contiguous entry's float32 body; ``ssd_scan`` at 64 heads of 50,
-   state 16): their entries' ``at_hymba``. The two
-   attention kernels are also timed at llama4-scout's (G 5), granite's
-   (G 48) and paper-opt-13b's (G 1, 40 heads) decode and chunk shapes,
-   beside SDPA, one line each. The times
+   state 16): their entries' ``at_hymba``. ``prefill_attention`` at
+   seamless's encoder (4 x 1024, non-causal), its cross-attention (4 x 64
+   queries over 1024 keys) and internvl2's prefill (4 x 1024, causal, G
+   6, Dh 128), beside its plain version and SDPA: ``flash_prefill``'s
+   ``at_seamless_encoder``, ``at_seamless_cross`` and ``at_internvl2``.
+   The two attention kernels are also timed at llama4-scout's (G 5),
+   granite's (G 48), paper-opt-13b's (G 1, 40 heads) and internvl2's
+   (G 6) decode and chunk shapes, beside SDPA, one line each. The times
    in the JSON line are of calls launched back to back from Python, as a
    caller meets them; the card's time alone and the host's time per call
    are printed beside them and kept in the detail line.
@@ -243,6 +268,33 @@ HYMBA_ARCH = "hymba-1.5b"
 HYMBA_BATCH, HYMBA_PROMPT, HYMBA_NEW = 4, 2048, 32
 HYMBA_ORACLE_BATCH, HYMBA_ORACLE_PROMPT, HYMBA_ORACLE_NEW = 2, 1280, 16
 MLA_RING_PROMPT, MLA_RING_NEW = 300, 16
+# prefill_attention(causal=False): an encoder's self-attention (S = Skv)
+# and a decoder's cross-attention (S queries over Skv encoder positions),
+# at (H, Hkv, Dh) of seamless-m4t-medium (G 1, Dh 64) and internvl2-26b
+# (G 6, Dh 128)
+NON_CAUSAL = [(64, 64), (1000, 1000), (1024, 1024)] + [
+    (s, skv) for s in (1, 64, 130) for skv in (16, 1000, 1024)]
+NON_CAUSAL_WIDTHS = [(16, 16, 64), (48, 8, 128)]
+# prefill_attention(causal=False) against its plain version, of the largest
+# |plain| value: (worst, median) by dtype. Both sides round q, k, v and the
+# probabilities to bf16 alike; a bf16 output may differ by one ulp (at most
+# 2**-7 of the largest value). On an H100 the kernel came within 9.8e-4
+# (float32) and 3.3e-3 (bf16) worst, 1.5e-7 and 0 in the median; a key
+# count off by one breaks both limits (tests/test_torch_encdec.py::
+# test_non_causal_limits_catch_a_key_count_off_by_one).
+NC_TOL = {torch.float32: (5e-3, 1e-6), torch.bfloat16: (1e-2, 1e-5)}
+# the encoder-decoder and media families through Model.prefill /
+# decode_step, whole: seamless-m4t-medium (4 requests of ENC_LEN encoder
+# positions, the first num_media_tokens of them audio frames, and a
+# SEAMLESS_PROMPT-token decoder prompt) and internvl2-26b (4 prompts of
+# INTERNVL_PROMPT positions, the first num_media_tokens of them patches);
+# each one's float32 oracle (seamless whole, internvl2 at ORACLE_LAYERS)
+SEAMLESS_ARCH, INTERNVL_ARCH = "seamless-m4t-medium", "internvl2-26b"
+MEDIA_BATCH = 4
+ENC_LEN, SEAMLESS_PROMPT, SEAMLESS_NEW = 1024, 64, 64
+SEAMLESS_ORACLE_NEW = 32
+INTERNVL_PROMPT, INTERNVL_NEW = 1024, 32
+INTERNVL_ORACLE_PROMPT, INTERNVL_ORACLE_NEW = 300, 16
 # the float32 oracles' engine and depth (the full width is kept)
 ORACLE_ENGINE = dict(num_pages=256, page_size=PS, max_slots=4,
                      max_tokens_per_iter=512)
@@ -292,9 +344,10 @@ SHORT_ENGINE = dict(num_pages=256, page_size=PS, max_slots=4,
 # chunk's capacity to T - 1 places, 27 gives every expert T
 MLA_ARCH, MLA_LAYERS, MLA_ORACLE_FACTOR = "deepseek-v2-236b", 8, 27.0
 MLA_SCHEMA = "mla:ckv512+krope64:bf16"
-# the attention kernels also timed at these configs' widths (G 5, 48, 1),
-# pools of TIMING_LAYERS layers cycled
-GQA_TIMING = ("llama4-scout-17b-a16e", "granite-20b", "paper-opt-13b")
+# the attention kernels also timed at these configs' widths (G 5, 48, 1,
+# 6), pools of TIMING_LAYERS layers cycled
+GQA_TIMING = ("llama4-scout-17b-a16e", "granite-20b", "paper-opt-13b",
+              "internvl2-26b")
 TIMING_LAYERS = 8
 # the zero-copy decode's partials: (H, Hkv, Dh) of danube (G 4), OPT (G 1),
 # llama4-scout (G 5) and granite (G 48)
@@ -602,6 +655,54 @@ def gqa_group_phase(dev):
                         (got.float() - want.float()).abs().max().item()
                 cases.append(case)
                 log(f"kernel phase: GQA group {case} ok")
+    return cases
+
+
+def rel_close(got, want, worst: float, median: float, what: str):
+    """|got - want| of the largest |want|: at most ``worst`` anywhere and
+    ``median`` in the median. Returns the two measured."""
+    d = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().clamp_min(1e-30)
+    w, m = (d.max() / scale).item(), (d.median() / scale).item()
+    assert w <= worst and m <= median, \
+        f"{what}: {w:.3g} worst, {m:.3g} median of max |want|"
+    return w, m
+
+
+def non_causal_phase(dev):
+    """``prefill_attention(causal=False)`` against its plain version at
+    NON_CAUSAL x NON_CAUSAL_WIDTHS, float32 and bfloat16, two sequences,
+    within NC_TOL: every key valid, Skv a multiple of the 128-key tile (the
+    TMA path in bf16), not one (1000: the last tile masked, staged through
+    registers) and below one tile (16)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   prefill_attention)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, hkv, dh in NON_CAUSAL_WIDTHS:
+            errs = {}
+            for s, skv in NON_CAUSAL:
+                q = torch.randn((2, s, h, dh), generator=gen,
+                                device=dev).to(dtype)
+                k, v = (torch.randn((2, skv, hkv, dh), generator=gen,
+                                    device=dev).to(dtype) for _ in range(2))
+                before = flash_prefill.launches
+                got = prefill_attention(q, k, v, causal=False)
+                torch.cuda.synchronize()
+                assert flash_prefill.launches == before + 2
+                want = ref.prefill_attention(q, k, v, causal=False)
+                worst, median = rel_close(got, want, *NC_TOL[dtype],
+                                          f"non-causal {s}x{skv}")
+                errs[f"{s}x{skv}"] = dict(
+                    max_abs_err=(got.float() - want.float()).abs().max()
+                    .item(), worst_rel=worst, median_rel=median)
+            cases.append(dict(form="non-causal", dtype=str(dtype)[6:],
+                              g=h // hkv, heads=h, kv_heads=hkv,
+                              head_dim=dh, errors=errs))
+            log(f"kernel phase: prefill_attention {cases[-1]} ok")
     return cases
 
 
@@ -2527,7 +2628,6 @@ def hymba_phase(dev, seed: int):
     (``hymba_oracle``) and the MLA ring (``mla_ring_check``)."""
     from repro_torch.bridge import init_params
     from repro_torch.configs import get_config
-    from repro_torch.models.layers import pad_vocab
     from repro_torch.models.transformer import Model
 
     cfg = get_config(HYMBA_ARCH)  # full width and depth, no cut
@@ -2545,73 +2645,33 @@ def hymba_phase(dev, seed: int):
         f"{n_params / 1e9:.3f} B params {cfg.dtype} on the card in "
         f"{time.monotonic() - t0:.1f}s")
     b, s, new = HYMBA_BATCH, HYMBA_PROMPT, HYMBA_NEW
-    cap = s + new
     rng = np.random.default_rng(seed)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
                            device=dev)
-    # warm-up at the timed shapes: the first calls load kernels and pick
-    # GEMM algorithms
-    _, warm = model.prefill(params, toks, seq_capacity=cap)
-    model.decode_step(params, toks[:, :1], toks[:, 0], warm)
-    del warm
-    torch.cuda.synchronize()
-
-    reset_launch_counts()  # read around this prefill alone
-    t0 = time.monotonic()
-    logits, caches = model.prefill(params, toks, seq_capacity=cap)
-    torch.cuda.synchronize()
-    prefill_s = time.monotonic() - t0
-    launches = launch_counts()
     want = dict(flash_prefill=cfg.num_layers * b, paged_attention=0,
                 ssd_scan=cfg.num_layers)
-    assert launches == want, f"prefill launches {launches}, want {want}"
-    assert logits.shape == (b, pad_vocab(cfg.vocab_size))
-    assert torch.isfinite(logits[:, :cfg.vocab_size].float()).all()
-    assert all(torch.isfinite(t.float()).all() for t in _leaves(caches)
-               if t.is_floating_point())
-
-    tok = logits[:, :cfg.vocab_size].argmax(-1)
-    pos = torch.full((b,), s, device=dev)
-    t0 = time.monotonic()
-    generated = []
-    for i in range(new):
-        logits, caches = model.decode_step(params, tok[:, None], pos + i,
-                                           caches)
-        tok = logits[:, :cfg.vocab_size].argmax(-1)
-        generated.append(tok)
-    torch.cuda.synchronize()
-    decode_s = time.monotonic() - t0
-    assert launch_counts() == want, "the ring decode launched a kernel"
-    gen = torch.stack(generated, 1)
-    assert ((gen >= 0) & (gen < cfg.vocab_size)).all()
-    assert torch.isfinite(logits[:, :cfg.vocab_size].float()).all()
-    assert all(torch.isfinite(t.float()).all() for t in _leaves(caches)
-               if t.is_floating_point())
+    _, run, caches = ring_run("hymba phase", cfg, params, dev, toks, {}, new,
+                              want)
     # the window rings wrapped: they hold the last 1024 positions
+    cap = run["capacity"]
     for seg, c in zip(model.plan, caches):
         kv_pos = c[0].pos
         lo = cap - cfg.sliding_window if seg.attn_kind == "swa" else 0
         assert int(kv_pos.min()) == lo and int(kv_pos.max()) == cap - 1, \
             (seg, int(kv_pos.min()), int(kv_pos.max()))
-    prompt_tokens = b * s
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"hymba phase: prefill of {b} x {s} tokens in "
-        f"{prefill_s * 1e3:.1f} ms ({prompt_tokens / prefill_s:.0f} "
-        f"tokens/s); launches {launches}; {new} greedy decode steps in "
-        f"{decode_s * 1e3:.1f} ms ({b * new / decode_s:.1f} tokens/s); "
-        f"max_memory_allocated {peak_gib:.2f} GiB")
-    del params, caches, logits
+        f"{run['prefill_ms']:.1f} ms ({run['prefill_tokens_per_s']:.0f} "
+        f"tokens/s); launches {run['launches']}; {new} greedy decode steps "
+        f"in {run['decode_ms']:.1f} ms ({run['decode_tokens_per_s']:.1f} "
+        f"tokens/s); max_memory_allocated {peak_gib:.2f} GiB")
+    del params, caches
     torch.cuda.empty_cache()
     oracle = hymba_oracle(dev, seed + 1)
     mla_ring = mla_ring_check(dev, seed + 2)
-    return dict(**phase_end("hymba phase", t_phase),
-                params=n_params, batch=b, prompt=s, capacity=cap,
-                prefill_ms=prefill_s * 1e3,
-                prefill_tokens_per_s=prompt_tokens / prefill_s,
-                decode_steps=new, decode_ms=decode_s * 1e3,
-                decode_tokens_per_s=b * new / decode_s,
-                measure_peak_gib=peak_gib, launches=launches,
-                oracle=oracle, mla_ring=mla_ring)
+    return dict(**phase_end("hymba phase", t_phase), params=n_params,
+                measure_peak_gib=peak_gib, oracle=oracle, mla_ring=mla_ring,
+                **run)
 
 
 def hymba_oracle(dev, seed: int):
@@ -2857,75 +2917,377 @@ def mla_ring_check(dev, seed: int):
                 min_gap_rel=min_gap, seconds=time.monotonic() - t0)
 
 
-def hymba_timing(dev, seed: int):
-    """The two kernels of hymba's prefill at its shapes, bf16: the prefill
-    attention as ``Model.prefill`` dispatches it (``prefill_attention``:
-    HYMBA_BATCH launches of the engine form, one per sequence, over
-    HYMBA_PROMPT tokens, G 5, Dh 64), with the window and without, beside
-    its plain version, SDPA on the same inputs and the contiguous entry
-    (``flash_prefill``: the float32 CUDA-core body, one launch); and
-    ``ssd_scan`` at (HYMBA_BATCH x HYMBA_PROMPT, 64 heads of 50, state 16,
-    chunk 256). Three input sets, cycled, so that no call finds its inputs
-    in the 50 MB L2. Returns one detail dict per kernel."""
-    import torch.nn.functional as F
+# -- the encoder-decoder and media families: seamless-m4t and internvl2 ------
+
+def media_inputs(cfg, dev, seed: int, b: int, s: int, enc_len: int = 0):
+    """(tokens (b, s), media (b, M, D) normal x 0.02 in the model type
+    from a seeded ``torch.Generator``, encoder tokens (b, enc_len) or
+    None)."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                           device=dev)
+    media = (torch.randn((b, cfg.num_media_tokens, cfg.d_model),
+                         generator=gen, device=dev) * 0.02) \
+        .to(cfg.torch_dtype)
+    enc = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, enc_len)),
+                          device=dev) if enc_len else None
+    return toks, media, enc
+
+
+def media_kw(media, enc):
+    kw = dict(media=media)
+    if enc is not None:
+        kw["encoder_tokens"] = enc
+    return kw
+
+
+def ring_run(label: str, cfg, params, dev, toks, kw, new: int, want):
+    """``Model.prefill`` of ``toks`` (with media / encoder tokens ``kw``)
+    and ``new`` greedy ``decode_step``s, bf16 or float32. The launch counts
+    are read around the prefill alone and must equal ``want``; the decode
+    launches none. Every logit, and every cache leaf after the prefill and
+    after the decode, must be finite. Returns (the greedy tokens (b, new +
+    1): the prefill's and each step's, stats, the last caches)."""
+    from repro_torch.models.layers import pad_vocab
+    from repro_torch.models.transformer import Model
+    model = Model(cfg)
+    b, s = toks.shape
+    cap = s + new
+    # warm-up at the timed shapes: the first calls load kernels and pick
+    # GEMM algorithms
+    _, warm = model.prefill(params, toks, seq_capacity=cap, **kw)
+    model.decode_step(params, toks[:, :1], toks[:, 0], warm)
+    del warm
+    torch.cuda.synchronize()
+
+    reset_launch_counts()  # read around this prefill alone
+    t0 = time.monotonic()
+    logits, caches = model.prefill(params, toks, seq_capacity=cap, **kw)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    launches = launch_counts()
+    assert launches == want, f"{label}: prefill launches {launches}, " \
+        f"want {want}"
+    assert logits.shape == (b, pad_vocab(cfg.vocab_size))
+    assert all(torch.isfinite(t.float()).all() for t in _leaves(caches)
+               if t.is_floating_point())
+    tok = logits[:, :cfg.vocab_size].argmax(-1)
+    pos = torch.full((b,), s, device=dev)
+    generated = [tok]
+    finite = torch.isfinite(logits[:, :cfg.vocab_size].float()).all()
+    t0 = time.monotonic()
+    for i in range(new):
+        logits, caches = model.decode_step(params, tok[:, None], pos + i,
+                                           caches)
+        finite &= torch.isfinite(logits[:, :cfg.vocab_size].float()).all()
+        tok = logits[:, :cfg.vocab_size].argmax(-1)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.monotonic() - t0
+    assert launch_counts() == want, f"{label}: the ring decode launched"
+    assert bool(finite), f"{label}: a logit was not finite"
+    assert all(torch.isfinite(t.float()).all() for t in _leaves(caches)
+               if t.is_floating_point())
+    gen = torch.stack(generated, 1)
+    assert ((gen >= 0) & (gen < cfg.vocab_size)).all()
+    return gen, dict(batch=b, prompt=s, capacity=cap,
+                     prefill_ms=prefill_s * 1e3,
+                     prefill_tokens_per_s=b * s / prefill_s,
+                     decode_steps=new, decode_ms=decode_s * 1e3,
+                     decode_tokens_per_s=b * new / decode_s,
+                     launches=launches), caches
+
+
+def ring_oracle(label: str, cfg, params, prompts, kw, generated):
+    """Each row's greedy tokens from ``Model.prefill`` + ``decode_step``
+    (the kernel prefill, the plain decode) against the argmax of
+    ``Model.forward`` (plain attention) over prompt + generated tokens,
+    teacher-forced with the same media / encoder tokens, by the oracle
+    phase's rule: a mismatch is allowed only where the forward's top-2
+    logits are closer than NEAR_TIE of its largest |logit| and the ring
+    chose the runner-up; comparing that row stops there."""
+    from repro_torch.models.transformer import Model
+    b, plen = prompts.shape
+    full = torch.cat([prompts, generated[:, :-1]], 1)
+    logits, _ = Model(cfg).forward(params, full, **kw)
+    lg = logits[:, plen - 1:, :cfg.vocab_size].float()
+    del logits
+    compared = near_ties = 0
+    min_gap = math.inf
+    for r in range(b):
+        for i in range(generated.shape[1]):
+            top2 = torch.topk(lg[r, i], 2)
+            tok, want = int(generated[r, i]), int(top2.indices[0])
+            gap = float(top2.values[0] - top2.values[1])
+            top = float(lg[r, i].abs().max())
+            min_gap = min(min_gap, gap / top)
+            compared += 1
+            if tok == want:
+                continue
+            assert tok == int(top2.indices[1]) and gap < NEAR_TIE * top, \
+                f"{label}: row {r} token {i}: ring {tok}, forward {want}, " \
+                f"top-2 gap {gap} >= {NEAR_TIE * top}"
+            near_ties += 1
+            log(f"{label}: near-tie at token {i} of row {r}; stop there")
+            break
+    total = generated.numel()
+    assert compared >= total // 2, f"only {compared}/{total} compared"
+    log(f"{label}: {compared}/{total} float32 greedy tokens of the ring "
+        f"equal Model.forward's argmax, {near_ties} near-tie stops, "
+        f"smallest top-2 gap {min_gap:.3g} of the largest |logit|")
+    return dict(compared=compared, total=total, near_tie_stops=near_ties,
+                min_gap_rel=min_gap)
+
+
+def seamless_phase(dev, seed: int):
+    """Full-width seamless-m4t-medium (12 encoder and 12 decoder layers,
+    d 1024, 16 heads, vocab 256206; random weights from a seed, bf16):
+    MEDIA_BATCH requests of ENC_LEN encoder positions, the first 512 audio
+    frame embeddings, and a SEAMLESS_PROMPT-token decoder prompt, through
+    ``Model.prefill`` (``flash_prefill`` once per sequence in each encoder
+    layer and twice in each decoder layer: self and cross; no other
+    kernel) and SEAMLESS_NEW greedy tokens (no kernel in the decode). Then
+    the float32 oracle at full width on the same inputs."""
+    from repro_torch.bridge import init_params
     from repro_torch.configs import get_config
+
+    cfg = get_config(SEAMLESS_ARCH)  # full width and depth, no cut
+    t_phase = t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"seamless phase: {cfg.arch_id} {cfg.encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers, d{cfg.d_model} {cfg.num_heads} "
+        f"heads, {n_params / 1e9:.3f} B params {cfg.dtype} on the card in "
+        f"{time.monotonic() - t0:.1f}s")
+    b = MEDIA_BATCH
+    toks, media, enc = media_inputs(cfg, dev, seed, b, SEAMLESS_PROMPT,
+                                    ENC_LEN)
+    kw = media_kw(media, enc)
+    want = dict(flash_prefill=(cfg.encoder_layers + 2 * cfg.num_layers) * b,
+                paged_attention=0, ssd_scan=0)
+    gen, run, _ = ring_run("seamless phase", cfg, params, dev, toks, kw,
+                        SEAMLESS_NEW, want)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"seamless phase: prefill of {b} x ({ENC_LEN} encoder positions, "
+        f"{cfg.num_media_tokens} of them audio frames, + {SEAMLESS_PROMPT} "
+        f"decoder tokens) in {run['prefill_ms']:.1f} ms; launches "
+        f"{run['launches']} = ({cfg.encoder_layers} + 2 x {cfg.num_layers})"
+        f" x {b}; {run['decode_steps']} greedy decode steps in "
+        f"{run['decode_ms']:.1f} ms ({run['decode_tokens_per_s']:.1f} "
+        f"tokens/s); max_memory_allocated {peak_gib:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+
+    # the float32 oracle, whole: the kernel prefill and the ring decode
+    # against Model.forward, on the same inputs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t1 = time.monotonic()
+    f32 = dataclasses.replace(cfg, dtype="float32", logits_fp32=True)
+    params = init_params(f32, seed=seed, device=dev)
+    kw = media_kw(media.float(), enc)
+    gen32, _, _ = ring_run("seamless oracle", f32, params, dev, toks, kw,
+                        SEAMLESS_ORACLE_NEW, want)
+    oracle = ring_oracle("seamless oracle", f32, params, toks, kw, gen32)
+    oracle["seconds"] = time.monotonic() - t1
+    del params
+    torch.cuda.empty_cache()
+    return dict(**phase_end("seamless phase", t_phase), params=n_params,
+                encoder_positions=ENC_LEN, media=cfg.num_media_tokens,
+                measure_peak_gib=peak_gib, oracle=oracle, **run)
+
+
+def internvl_phase(dev, seed: int):
+    """Full-width internvl2-26b (48 layers, d 6144, 48 heads over 8 KV
+    heads (G 6), Dh 128, vocab 92553; random weights from a seed, bf16, ~
+    38.6 GB): ``Model.prefill`` of MEDIA_BATCH prompts of INTERNVL_PROMPT
+    positions, the first 256 patch embeddings (``flash_prefill`` once per
+    layer and sequence), INTERNVL_NEW greedy ``decode_step``s; then the
+    same weights serve SHORT_PROMPTS text-only on the paged engine through
+    LLMService (``paged_attention`` at G 6 on a model's path). Then the
+    float32 oracles at ORACLE_LAYERS: the ring with media against
+    ``Model.forward``, and the engine (``oracle_model``)."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+
+    cfg = get_config(INTERNVL_ARCH)  # full width and depth, no cut
+    t_phase = t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"internvl2 phase: {cfg.arch_id} {cfg.num_layers}L d{cfg.d_model} "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV, Dh "
+        f"{cfg.head_dim}, {n_params / 1e9:.3f} B params {cfg.dtype} on the "
+        f"card in {time.monotonic() - t0:.1f}s")
+    b = MEDIA_BATCH
+    toks, media, _ = media_inputs(cfg, dev, seed, b, INTERNVL_PROMPT)
+    want = dict(flash_prefill=cfg.num_layers * b, paged_attention=0,
+                ssd_scan=0)
+    _, run, _ = ring_run("internvl2 phase", cfg, params, dev, toks,
+                      media_kw(media, None), INTERNVL_NEW, want)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"internvl2 phase: prefill of {b} x {INTERNVL_PROMPT} positions "
+        f"({cfg.num_media_tokens} of them patches) in "
+        f"{run['prefill_ms']:.1f} ms ({run['prefill_tokens_per_s']:.0f} "
+        f"tokens/s); launches {run['launches']}; {run['decode_steps']} "
+        f"greedy decode steps in {run['decode_ms']:.1f} ms "
+        f"({run['decode_tokens_per_s']:.1f} tokens/s); "
+        f"max_memory_allocated {peak_gib:.2f} GiB")
+    del toks, media
+    serve = serve_model("internvl2 serve phase", cfg, dev, seed,
+                        short_requests(cfg.vocab_size, seed), SHORT_ENGINE,
+                        params=params)
+    del params
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t1 = time.monotonic()
+    f32 = dataclasses.replace(cfg, dtype="float32", logits_fp32=True,
+                              num_layers=ORACLE_LAYERS)
+    params = init_params(f32, seed=seed + 1, device=dev)
+    toks, media, _ = media_inputs(f32, dev, seed + 1, 2,
+                                  INTERNVL_ORACLE_PROMPT)
+    kw = media_kw(media, None)
+    gen32, _, _ = ring_run("internvl2 oracle", f32, params, dev, toks, kw,
+                        INTERNVL_ORACLE_NEW,
+                        dict(flash_prefill=ORACLE_LAYERS * 2,
+                             paged_attention=0, ssd_scan=0))
+    ring = ring_oracle("internvl2 oracle", f32, params, toks, kw, gen32)
+    ring["seconds"] = time.monotonic() - t1
+    del params, toks, media, kw
+    torch.cuda.empty_cache()
+    engine = oracle_model("internvl2 engine oracle", dataclasses.replace(
+        cfg, num_layers=ORACLE_LAYERS), dev, seed + 2)
+    return dict(**phase_end("internvl2 phase", t_phase), params=n_params,
+                media=cfg.num_media_tokens, measure_peak_gib=peak_gib,
+                serve=serve, oracle=dict(ring=ring, engine=engine), **run)
+
+
+def attention_row(label: str, dev, gen, b: int, s: int, skv: int, widths,
+                  *, causal=True, window=None, contiguous=False):
+    """``prefill_attention`` as ``Model.prefill`` dispatches it (one launch
+    per sequence): ``b`` x ``s`` queries over ``skv`` keys at ``widths``
+    (H, Hkv, Dh), bf16, against its plain version, and timed beside it,
+    SDPA on the same inputs (an explicit mask with a window, else
+    ``is_causal``) and with ``contiguous`` the contiguous entry
+    (``flash_prefill``: the float32 CUDA-core body, one launch). Three
+    input sets, cycled, so that no call finds its inputs in the 50 MB L2.
+    Returns the row's detail dict."""
+    import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    prefill_attention)
-    from repro_torch.kernels.ssd_scan import ssd_scan
-    cfg = get_config(HYMBA_ARCH)
-    b, s = HYMBA_BATCH, HYMBA_PROMPT
-    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, hkv, dh = widths
     dtype = torch.bfloat16
     esz = torch.finfo(dtype).bits // 8
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    kw = dict(causal=causal, window=window)
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    sets = [(rand(b, s, h, dh), rand(b, s, hkv, dh), rand(b, s, hkv, dh))
+    sets = [(rand(b, s, h, dh), rand(b, skv, hkv, dh), rand(b, skv, hkv, dh))
             for _ in range(3)]
     before = flash_prefill.launches
-    attention = {}
-    for window in (cfg.sliding_window, None):
-        q, k, v = sets[0]
-        got = prefill_attention(q, k, v, window=window)
-        want = ref.prefill_attention(q, k, v, window=window)
+    q, k, v = sets[0]
+    got = prefill_attention(q, k, v, **kw)
+    want = ref.prefill_attention(q, k, v, **kw)
+    if causal:
         torch.testing.assert_close(got.float(), want.float(), **TOL_ENGINE)
-        pos = torch.arange(s, device=dev)
-        mask = pos[None] <= pos[:, None]
-        if window is not None:
-            mask &= pos[None] > pos[:, None] - window
-        lib = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-               for q, k, v in sets]
-        ms, device_ms, host_us = cuda_ms(
-            lambda i: prefill_attention(*sets[i % 3], window=window), 9)
-        plain_ms, plain_device_ms, _ = cuda_ms(
-            lambda i: ref.prefill_attention(*sets[i % 3], window=window), 6,
-            warmup=1)
-        library_ms, library_device_ms, _ = cuda_ms(
-            lambda i: F.scaled_dot_product_attention(
-                *lib[i % 3], attn_mask=mask, enable_gqa=True), 9)
-        contiguous_ms, contiguous_device_ms, _ = cuda_ms(
-            lambda i: flash_prefill(*sets[i % 3], causal=True,
-                                    window=window), 6, warmup=1)
-        pairs = int(mask.sum())
-        nbytes = 2 * b * s * h * dh * esz + 2 * b * s * hkv * dh * esz
-        flops = 4 * b * h * dh * pairs
-        bound_ms, bound_by = bound(nbytes, flops, dtype)
-        attention["window" if window else "global"] = dict(
-            shape=[b, s, h, hkv, dh], window=window,
-            launches_per_call=b, max_abs_err=(got.float() - want.float())
-            .abs().max().item(), ms=ms, device_ms=device_ms,
-            host_us=host_us, plain_ms=plain_ms,
-            plain_device_ms=plain_device_ms, library_ms=library_ms,
-            library_device_ms=library_device_ms,
-            contiguous_ms=contiguous_ms,
-            contiguous_device_ms=contiguous_device_ms, valid_pairs=pairs,
-            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+    else:
+        rel_close(got, want, *NC_TOL[dtype], label)
+    qpos, kpos = torch.arange(s, device=dev), torch.arange(skv, device=dev)
+    mask = torch.ones((s, skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos[None] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None] > qpos[:, None] - window
+    sdpa = dict(attn_mask=mask) if window is not None \
+        else dict(is_causal=causal)
+    lib = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+           for q, k, v in sets]
+    ms, device_ms, host_us = cuda_ms(
+        lambda i: prefill_attention(*sets[i % 3], **kw), 9)
+    plain_ms, plain_device_ms, _ = cuda_ms(
+        lambda i: ref.prefill_attention(*sets[i % 3], **kw), 6, warmup=1)
+    library_ms, library_device_ms, _ = cuda_ms(
+        lambda i: F.scaled_dot_product_attention(*lib[i % 3],
+                                                 enable_gqa=True, **sdpa), 9)
+    extra = {}
+    if contiguous:
+        extra["contiguous_ms"], extra["contiguous_device_ms"], _ = cuda_ms(
+            lambda i: flash_prefill(*sets[i % 3], **kw), 6, warmup=1)
     flash_prefill.launches = before  # timing launches are not the path's
-    del sets, lib
+    pairs = int(mask.sum())  # of one sequence
+    nbytes = 2 * b * s * h * dh * esz + 2 * b * skv * hkv * dh * esz
+    flops = 4 * b * h * dh * pairs
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    row = dict(shape=[b, s, skv, h, hkv, dh], causal=causal, window=window,
+               launches_per_call=b,
+               max_abs_err=(got.float() - want.float()).abs().max().item(),
+               ms=ms, device_ms=device_ms, host_us=host_us,
+               plain_ms=plain_ms, plain_device_ms=plain_device_ms,
+               library_ms=library_ms, library_device_ms=library_device_ms,
+               **extra, valid_pairs=b * pairs, bytes=nbytes, flops=flops,
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"flash_prefill at {label} {row['shape']} (B, S, Skv, H, Hkv, Dh), "
+        f"causal {causal}, window {window}: back to back {ms:.4f} ms, "
+        f"device {fmt_ms(device_ms)}, plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms (device {fmt_ms(library_device_ms)})" + (
+            f", contiguous entry {extra['contiguous_ms']:.4f} ms (device "
+            f"{fmt_ms(extra['contiguous_device_ms'])})" if contiguous
+            else "") + f"; bound {bound_ms:.4f} ms ({bound_by})")
+    del sets, lib, q, k, v, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def prefill_shape_timing(dev, seed: int):
+    """``attention_row`` at this slice's shapes: seamless's encoder
+    (MEDIA_BATCH x ENC_LEN, non-causal, 16 heads, Dh 64), its
+    cross-attention (MEDIA_BATCH x SEAMLESS_PROMPT queries over ENC_LEN
+    keys) and internvl2's prefill (MEDIA_BATCH x INTERNVL_PROMPT, causal,
+    G 6, Dh 128). Returns one detail dict per shape."""
+    from repro_torch.configs import get_config
+    sm, iv = get_config(SEAMLESS_ARCH), get_config(INTERNVL_ARCH)
+    shapes = {
+        "seamless_encoder": (ENC_LEN, ENC_LEN, sm, False),
+        "seamless_cross": (SEAMLESS_PROMPT, ENC_LEN, sm, False),
+        "internvl2": (INTERNVL_PROMPT, INTERNVL_PROMPT, iv, True)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return {name: attention_row(
+        name, dev, gen, MEDIA_BATCH, s, skv,
+        (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim), causal=causal)
+        for name, (s, skv, cfg, causal) in shapes.items()}
+
+
+def hymba_timing(dev, seed: int):
+    """The two kernels of hymba's prefill at its shapes, bf16: the prefill
+    attention (``attention_row``: HYMBA_BATCH x HYMBA_PROMPT tokens, G 5,
+    Dh 64, with the window and without, and the contiguous entry), and
+    ``ssd_scan`` at (HYMBA_BATCH x HYMBA_PROMPT, 64 heads of 50, state 16,
+    chunk 256), three input sets cycled. Returns one detail dict per
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    cfg = get_config(HYMBA_ARCH)
+    b, s = HYMBA_BATCH, HYMBA_PROMPT
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    attention = {
+        "window" if window else "global": attention_row(
+            "hymba's prefill shape", dev, gen, b, s, s,
+            (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim), window=window,
+            contiguous=True)
+        for window in (cfg.sliding_window, None)}
 
     shape = (b, s, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
              cfg.ssm_state, cfg.ssm_chunk)
@@ -2949,17 +3311,10 @@ def hymba_timing(dev, seed: int):
                plain_ms=plain_ms, plain_device_ms=plain_device_ms,
                library_ms=None, bytes=nbytes, flops=flops,
                bound_ms=bound_ms, bound_by=bound_by)
-    for label, t in [*(("flash_prefill " + k, a)
-                       for k, a in attention.items()), ("ssd_scan", ssd)]:
-        log(f"{label} at hymba's prefill shape {t['shape']}: back to back "
-            f"{t['ms']:.4f} ms, device {fmt_ms(t['device_ms'])}, plain "
-            f"{t['plain_ms']:.4f} ms, library "
-            f"{fmt_ms(t['library_ms'])}" + (
-                f" (device {fmt_ms(t['library_device_ms'])}), contiguous "
-                f"entry {t['contiguous_ms']:.4f} ms (device "
-                f"{fmt_ms(t['contiguous_device_ms'])})"
-                if "contiguous_ms" in t else "") +
-            f"; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    log(f"ssd_scan at hymba's prefill shape {ssd['shape']}: back to back "
+        f"{ssd['ms']:.4f} ms, device {fmt_ms(ssd['device_ms'])}, plain "
+        f"{ssd['plain_ms']:.4f} ms; bound {ssd['bound_ms']:.4f} ms "
+        f"({ssd['bound_by']})")
     return attention, ssd
 
 
@@ -3290,10 +3645,13 @@ def log_timings(card: str, timed) -> None:
 def host_cost(src: Path) -> int:
     """``--host-cost SRC``: the timing of the two attention wrappers alone
     (paged_attention at the serve decode shape, flash_prefill's engine form
-    at its chunks), for the ``repro_torch`` under ``SRC``, e.g. an unpacked
-    earlier commit's ``src``, so that two trees' host cost per call can be
-    compared on one card, the trees run in turns."""
+    at its chunks, and the engine form's chunk at the widths of each
+    GQA_TIMING config that SRC's tree knows), for the ``repro_torch`` under
+    ``SRC``, e.g. an unpacked earlier commit's ``src``, so that two trees'
+    host and device cost per call can be compared on one card, the trees
+    run in turns."""
     sys.path.insert(0, str(src.resolve()))
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.kernels import _build
     for name in KERNELS[:2]:
         _build.build(name)
@@ -3301,6 +3659,9 @@ def host_cost(src: Path) -> int:
     card = card_line()
     paged, paged_shapes = timing_phase(dev, seed=2, launches=0)
     flash, flash_shapes = flash_timing(dev, seed=5, launches=0)
+    gqa = {arch: flash_timing(dev, seed=5, launches=0, arch=arch,
+                              max_layers=TIMING_LAYERS, chunk_shapes=())
+           for arch in GQA_TIMING if arch in ARCH_IDS}
     log(f"host cost of {src} on {card}")
     log_timings(card, [(paged, paged_shapes), (flash, flash_shapes)])
     log("host_cost " + json.dumps(dict(
@@ -3308,7 +3669,9 @@ def host_cost(src: Path) -> int:
         paged_attention=dict(ms=paged["ms"], library_ms=paged["library_ms"],
                              **paged_shapes),
         flash_prefill=dict(ms=flash["ms"], library_ms=flash["library_ms"],
-                           **flash_shapes))))
+                           **flash_shapes),
+        flash_prefill_at={arch: dict(ms=k["ms"], **shapes)
+                          for arch, (k, shapes) in gqa.items()})))
     return 0
 
 
@@ -3337,12 +3700,14 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     cases = kernel_phase(dev) + partials_phase(dev) + flash_phase(dev) \
-        + gqa_group_phase(dev) + ssd_phase(dev)
+        + gqa_group_phase(dev) + non_causal_phase(dev) + ssd_phase(dev)
     serve = serve_phase(dev, seed=0)
     oracle = oracle_phase(dev, seed=1)
     slice1 = slice1_phase(dev, seed=8)
     mamba = mamba_phase(dev, seed=3)
     hymba = hymba_phase(dev, seed=12)
+    seamless = seamless_phase(dev, seed=13)
+    internvl = internvl_phase(dev, seed=14)
     moe = moe_phases(dev, seed=9)
     dense = dense_phases(dev, seed=10)
     mla = mla_phases(dev, seed=11)
@@ -3351,12 +3716,16 @@ def main() -> int:
     sim = dense["sim"]
     paged, paged_shapes = timing_phase(
         dev, seed=2, launches=serve["launches"] + cluster["launches"]
-        + sum(h["launches"] for h in host_tiers) + sim["launches"])
+        + sum(h["launches"] for h in host_tiers) + sim["launches"]
+        + internvl["serve"]["launches"])
     flash, flash_shapes = flash_timing(
         dev, seed=5,
         launches=serve["prefill_launches"] + cluster["prefill_launches"]
         + sum(h["prefill_launches"] for h in host_tiers)
-        + sim["prefill_launches"] + hymba["launches"]["flash_prefill"])
+        + sim["prefill_launches"] + hymba["launches"]["flash_prefill"]
+        + seamless["launches"]["flash_prefill"]
+        + internvl["launches"]["flash_prefill"]
+        + internvl["serve"]["prefill_launches"])
     ssd, ssd_shapes = ssd_timing(
         dev, seed=6,
         launches=mamba["launches"] + hymba["launches"]["ssd_scan"])
@@ -3367,8 +3736,12 @@ def main() -> int:
         **hymba_attention)
     ssd["at_hymba"] = dict(launches_per_prefill=hymba["launches"]["ssd_scan"],
                            **hymba_ssd)
+    # and at the encoder-decoder and media families' prefill shapes
+    for name, t in prefill_shape_timing(dev, seed=8).items():
+        flash[f"at_{name}"] = t
     served = dict(dense["serve"], **{MOE_ARCH: moe["serve"],
-                                     MLA_ARCH: mla["serve"]})
+                                     MLA_ARCH: mla["serve"],
+                                     INTERNVL_ARCH: internvl["serve"]})
     gqa_timed = {}
     for arch in GQA_TIMING:
         run = served[arch]
@@ -3442,6 +3815,18 @@ def main() -> int:
         f"({hymba['prefill_tokens_per_s']:.0f} tokens/s), decode "
         f"{hymba['decode_tokens_per_s']:.1f} tokens/s, max_memory_allocated "
         f"{hymba['measure_peak_gib']:.2f} GiB")
+    log(f"seamless phase on {card}: prefill {seamless['prefill_ms']:.1f} ms "
+        f"for {MEDIA_BATCH} x ({ENC_LEN} encoder + {SEAMLESS_PROMPT} "
+        f"decoder positions), decode {seamless['decode_tokens_per_s']:.1f} "
+        f"tokens/s, max_memory_allocated "
+        f"{seamless['measure_peak_gib']:.2f} GiB; {seamless['seconds']:.1f} "
+        f"s")
+    log(f"internvl2 phase on {card}: prefill {internvl['prefill_ms']:.1f} ms "
+        f"for {MEDIA_BATCH} x {INTERNVL_PROMPT} positions "
+        f"({internvl['prefill_tokens_per_s']:.0f} tokens/s), decode "
+        f"{internvl['decode_tokens_per_s']:.1f} tokens/s, "
+        f"max_memory_allocated {internvl['measure_peak_gib']:.2f} GiB; "
+        f"{internvl['seconds']:.1f} s")
     log_timings(card, [(paged, paged_shapes), (flash, flash_shapes),
                        (ssd, ssd_shapes)])
     for arch, timed in gqa_timed.items():
@@ -3449,7 +3834,8 @@ def main() -> int:
                     timed)
     log("detail " + json.dumps(dict(
         card=card, serve=serve, oracle=oracle, slice1=slice1, mamba=mamba,
-        hymba=hymba, moe=moe, dense=dense, mla=mla, kernel_cases=cases,
+        hymba=hymba, seamless=seamless, internvl2=internvl, moe=moe,
+        dense=dense, mla=mla, kernel_cases=cases,
         timing=dict(paged_attention=paged_shapes,
                     flash_prefill=flash_shapes, ssd_scan=ssd_shapes,
                     gqa={arch: dict(paged_attention=dict(t[0][0], **t[0][1]),

@@ -23,7 +23,7 @@ from repro_torch.models.attention import gqa_init, mla_init
 from repro_torch.models.layers import embed_init, mlp_init, norm_init
 from repro_torch.models.moe import moe_init
 from repro_torch.models.ssm import ssm_init
-from repro_torch.models.transformer import stack_plan
+from repro_torch.models.transformer import encoder_plan, stack_plan
 
 
 def _map(tree, fn):
@@ -70,16 +70,36 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     gate normal * 1/sqrt(d) and down normal * 1/sqrt(ff); an SSM layer's
     conv weights normal * 0.2, A_log = log(1..H), D one, dt_bias and the
     conv bias zero. A hybrid layer has both ``attn`` and ``ssm`` and the
-    dense MLP (``transformer.py:87-106``). Same shapes and
-    distributions as ``Model.init``; not the same numbers (JAX's generator
-    differs)."""
+    dense MLP; a cross layer also ``ln_cross`` and the GQA block ``cross``;
+    an encoder-decoder model also ``params["encoder"]`` (``{"segments",
+    "final_norm"}``, its dense GQA layers) (``transformer.py:87-106,
+    319-330``). Same shapes and distributions as ``Model.init``; not the
+    same numbers (JAX's generator differs)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dt = cfg.torch_dtype
     d = cfg.d_model
+    segments = _init_segments(cfg, stack_plan(cfg), gen, dt, dev)
+    params = {
+        "embed": embed_init(gen, cfg.vocab_size, d, dt, dev),
+        "final_norm": norm_init(d, dt, dev, bias=cfg.use_bias),
+        "segments": segments,
+    }
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "segments": _init_segments(cfg, encoder_plan(cfg), gen, dt, dev),
+            "final_norm": norm_init(d, dt, dev, bias=cfg.use_bias),
+        }
+    return params
+
+
+def _init_segments(cfg: ArchConfig, plan, gen, dt, dev):
+    """One parameter dict per segment of ``plan``, its layers stacked
+    along a leading axis where it has several (``transformer.py:87-106``)."""
+    d = cfg.d_model
     segments = []
-    for seg in stack_plan(cfg):
+    for seg in plan:
         lead = (seg.n,) if seg.n > 1 else ()
         p = {"ln1": norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias)}
         if seg.mixer in ("gqa", "hybrid"):
@@ -88,6 +108,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
             p["attn"] = mla_init(cfg, gen, dt, dev, lead=lead)
         if seg.mixer in ("ssm", "hybrid"):
             p["ssm"] = ssm_init(cfg, gen, dt, dev, lead=lead)
+        if seg.cross:
+            p["ln_cross"] = norm_init(d, dt, dev, lead=lead,
+                                      bias=cfg.use_bias)
+            p["cross"] = gqa_init(cfg, gen, dt, dev, lead=lead)
         if seg.mlp_kind == "dense":
             p["ln2"] = norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias)
             p["mlp"] = mlp_init(gen, d, cfg.d_ff, dt, dev,
@@ -97,8 +121,4 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
             p["ln2"] = norm_init(d, dt, dev, lead=lead, bias=cfg.use_bias)
             p["mlp"] = moe_init(cfg, gen, dt, dev, lead=lead)
         segments.append(p)
-    return {
-        "embed": embed_init(gen, cfg.vocab_size, d, dt, dev),
-        "final_norm": norm_init(d, dt, dev, bias=cfg.use_bias),
-        "segments": segments,
-    }
+    return segments

@@ -5,10 +5,9 @@ dtype property: :attr:`ArchConfig.torch_dtype` maps the ``dtype`` string to
 a ``torch.dtype`` instead. ``get_config`` resolves dashed ids
 (``--arch h2o-danube-1.8b``) to a module of this package; ``smoke_config``
 returns the reduced variant the CPU tests use (2 layers, d_model 256),
-built exactly as the reference builds it. Only the archs the port runs so
-far have a module here: the GQA decoders (dense, and MoE on GQA),
-deepseek-v2 (MLA + MoE), mamba2 and hymba (parallel attention + SSM
-heads).
+built exactly as the reference builds it. Every arch of the reference has
+a module here: its ten ``ARCH_IDS`` and paper-opt-13b, which the
+reference has a module for but does not list.
 """
 
 from __future__ import annotations
@@ -127,6 +126,8 @@ ARCH_IDS = [
     "llama4-scout-17b-a16e",
     "deepseek-v2-236b",
     "hymba-1.5b",
+    "seamless-m4t-medium",
+    "internvl2-26b",
 ]
 
 
@@ -136,8 +137,8 @@ def _module_name(arch_id: str) -> str:
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in ARCH_IDS:
-        raise ValueError(f"arch {arch_id!r} is not ported yet "
-                         f"(ported: {', '.join(ARCH_IDS)})")
+        raise ValueError(f"unknown arch {arch_id!r} (known: "
+                         f"{', '.join(ARCH_IDS)})")
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG

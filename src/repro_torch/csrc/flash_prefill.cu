@@ -8,11 +8,15 @@
 // an optional sliding window (key k is valid for a query at position q iff
 // k <= q when causal, and k > q - window). Two entry points, each with its
 // own kernel body:
-//  * flash_prefill_paged (the serving engine's prefill chunk, on the main
-//    path): S queries at absolute positions q_offset..q_offset+S-1 attend
-//    causally over K/V read in place from a strided per-layer pool slice
-//    through the chunk's int32 page ids (position k is token k % ps of page
-//    ids[k / ps]). Its numerics are those of the port's
+//  * flash_prefill_paged (the serving engine's prefill chunk and
+//    Model.prefill's attention, on the main path): S queries at absolute
+//    positions q_offset..q_offset+S-1 attend over the first kv_len
+//    positions of K/V read in place from a strided per-layer pool slice
+//    through int32 page ids (position k is token k % ps of page
+//    ids[k / ps]), causally (kv_len = q_offset + S) or not (an encoder's
+//    self-attention, kv_len = S, and a decoder's cross-attention over the
+//    encoder's kv_len positions, any number). Its numerics are those of the
+//    port's
 //    `blockwise_attention`: q, k, v and the *normalised* probabilities are
 //    rounded to bfloat16, products accumulate in float32, the softmax is
 //    float32. Both products are therefore exactly what the tensor cores'
@@ -57,10 +61,10 @@
 // bf16 pairs straight from the score accumulators, which is the
 // A-operand layout of the P V `mma`, so p never goes through shared memory;
 // O accumulates in float32 registers. Each block walks only the key tiles
-// its rows can see (from the window's start to the causal end) and masks
-// only the tiles that cross a row's range. Blocks are ordered so that the
-// two that share an SM pair a late (long) query tile with an early (short)
-// one. Dh is padded with zeros to 32, 64, 80 or 128, one instantiation each.
+// its rows can see (from the window's start to the causal end, or to
+// kv_len) and masks only the tiles that cross a row's range or kv_len.
+// Blocks are ordered so that the two that share an SM pair a late (long)
+// query tile with an early (short) one. Dh is padded with zeros to 32, 64, 80 or 128, one instantiation each.
 // On the host, the pools' tensor maps, the shared-memory attribute and the
 // SM count are cached (tma.cuh): the engine calls once per layer and chunk.
 
@@ -382,18 +386,21 @@ flash_prefill_mma_kernel(const __grid_constant__ Args a) {
   const int q0 = (nqt - 1 - rank / a.Hkv) * BQ;
   const int nch = (Dh + 7) / 8;  // 8-element pieces of a head slice
 
-  // this thread's two rows: warp * 16 + gid and + 8
+  // this thread's two rows: warp * 16 + gid and + 8. qpos is the last key
+  // a row may see: its position when causal, else past every key (no
+  // window then), so that one compare masks either form
+  constexpr int kNoLimit = 0x3fffffff;
   int qpos[2];
   bool row_ok[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = warp * 16 + gid + 8 * h, i = r / G;
     row_ok[h] = r < R && q0 + i < a.S;
-    qpos[h] = a.q_offset + q0 + i;
+    qpos[h] = a.causal ? a.q_offset + q0 + i : kNoLimit;
   }
   const int qmin = a.q_offset + q0;
   const int qmax = a.q_offset + min(q0 + BQ, a.S) - 1;
-  const int k_hi = min(qmax + 1, a.kv_len);
+  const int k_hi = a.causal ? min(qmax + 1, a.kv_len) : a.kv_len;
   const int k_lo = a.window > 0 ? max(0, qmin - a.window + 1) : 0;
   // key tiles start at multiples of kMmaKeys, so that they are whole pages
   const int tile_lo = k_lo / kMmaKeys * kMmaKeys;
@@ -501,6 +508,9 @@ flash_prefill_mma_kernel(const __grid_constant__ Args a) {
   const bool warp_ok = r_last < R && q0 + r_last / G < a.S;
   const int p_lo = a.q_offset + q0 + (warp * 16) / G;
   const int p_hi = a.q_offset + q0 + r_last / G;
+  // a tile ending below full_hi is inside every row's range (k_hi bounds
+  // the causal end too)
+  const int full_hi = a.causal ? p_lo + 1 : k_hi;
   uint32_t qf[KD][4];
 #pragma unroll
   for (int kk = 0; kk < KD; ++kk)  // q fragments, held for the whole kernel
@@ -557,8 +567,8 @@ flash_prefill_mma_kernel(const __grid_constant__ Args a) {
     }
     // mask: s[j][2h + e] is row h's key kb + 8j + 2 tig + e (a masked
     // score becomes -inf); a tile wholly inside every row's range of the
-    // warp needs none
-    const bool full = warp_ok && kb + kMmaKeys - 1 <= p_lo &&
+    // warp, and below kv_len, needs none
+    const bool full = warp_ok && kb + kMmaKeys <= full_hi &&
                       (a.window <= 0 || kb > p_hi - a.window);
     if (!full) {
 #pragma unroll
@@ -739,25 +749,28 @@ int flash_prefill_contiguous(const void* q, const void* k, const void* v,
 
 // One engine prefill chunk: q (1, S, H, Dh) contiguous at positions
 // q_offset..q_offset+S-1; K/V of context position k at
-// pages[k / ps]*sp + (k % ps)*st + h*sh + d, for pages < num_pages; causal
-// over kv_len = q_offset + S keys.
+// pages[k / ps]*sp + (k % ps)*st + h*sh + d, for pages < num_pages; over
+// the first kv_len keys, causally (then kv_len >= q_offset + S) or all of
+// them (kv_len >= 1, no window).
 int flash_prefill_paged(const void* q, const void* k_pool,
                         const void* v_pool, const int32_t* pages, void* out,
                         int S, int H, int Hkv, int Dh, int page_size,
-                        int num_pages, int q_offset, int window, int64_t k_sp,
-                        int64_t k_st,
+                        int num_pages, int q_offset, int kv_len, int causal,
+                        int window, int64_t k_sp, int64_t k_st,
                         int64_t k_sh, int64_t v_sp, int64_t v_st,
                         int64_t v_sh, float scale, int dtype, void* stream) {
   Args a = {};
   a.q = q; a.k = k_pool; a.v = v_pool; a.pages = pages; a.out = out;
   a.S = S; a.H = H; a.Hkv = Hkv; a.Dh = Dh; a.page_size = page_size;
   a.num_pages = num_pages;
-  a.q_offset = q_offset; a.kv_len = q_offset + S; a.window = window;
-  a.causal = true;
+  a.q_offset = q_offset; a.kv_len = kv_len; a.window = window;
+  a.causal = causal != 0;
   a.k_sp = k_sp; a.k_st = k_st; a.k_sh = k_sh;
   a.v_sp = v_sp; a.v_st = v_st; a.v_sh = v_sh;
   a.scale = scale;
-  if (bad_shape(a)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(a) || kv_len < (a.causal ? q_offset + S : 1) ||
+      (!a.causal && window > 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_paged<float>(a, s);
   if (dtype == 1) return launch_paged<__nv_bfloat16>(a, s);

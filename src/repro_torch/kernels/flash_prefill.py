@@ -12,9 +12,11 @@ Two entry points of one kernel:
   rounding of q, k, v and the normalised probabilities).
 
 :func:`prefill_attention` is ``Model.prefill``'s full-sequence attention
-on the second entry point's body: the batch's contiguous K/V (B, S, Hkv,
-Dh) is read in place as a pool of B pages of S tokens, one launch per
-sequence over its own page, so any S is taken.
+on the second entry point's body: the batch's K/V (B, Skv, Hkv, Dh) is
+read in place as a pool of B pages of Skv tokens, one launch per sequence
+over its own page, so any length is taken. It is causal self-attention
+(Skv = S) or attention over all Skv keys: an encoder's self-attention and
+a decoder's cross-attention over the encoder's positions.
 
 Each dispatches by the device of its tensors. CPU tensors take the plain
 version (``kernels.ref``); CUDA tensors launch the kernel or raise: there
@@ -45,8 +47,8 @@ def _lib():
             p, p, p, p, i32, i32, i32, i32, i32, i32, i32, i32,
             i64, i64, i64, i64, i64, i64, f32, i32, p]
         lib.flash_prefill_paged.argtypes = [
-            p, p, p, p, p, i32, i32, i32, i32, i32, i32, i32, i32,
-            i64, i64, i64, i64, i64, i64, f32, i32, p]
+            p, p, p, p, p, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+            i32, i64, i64, i64, i64, i64, i64, f32, i32, p]
         lib.flash_prefill_contiguous.restype = ctypes.c_int
         lib.flash_prefill_paged.restype = ctypes.c_int
         lib.flash_prefill_error_string.argtypes = [ctypes.c_int]
@@ -160,12 +162,15 @@ def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
                          f"{page_ids.shape[0]}")
     out = torch.empty_like(q)
     if s:
-        _launch_paged(q, k_pool, v_pool, page_ids, out, q_offset, window)
+        _launch_paged(q, k_pool, v_pool, page_ids, out, q_offset,
+                      q_offset + s, True, window)
     return out
 
 
-def _launch_paged(q, k_pool, v_pool, page_ids, out, q_offset, window):
-    """One launch of the engine form, checked by the caller."""
+def _launch_paged(q, k_pool, v_pool, page_ids, out, q_offset, kv_len,
+                  causal, window):
+    """One launch of the engine form over the first ``kv_len`` keys,
+    checked by the caller."""
     lib = _lib()
     _, s, h, dh = q.shape
     ks, vs = k_pool.stride(), v_pool.stride()
@@ -173,41 +178,52 @@ def _launch_paged(q, k_pool, v_pool, page_ids, out, q_offset, window):
         lib.flash_prefill_paged, q.get_device(),
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_ids.data_ptr(), out.data_ptr(), s, h, k_pool.shape[2],
-        dh, k_pool.shape[1], k_pool.shape[0], q_offset, window or 0,
-        ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], 1.0 / dh ** 0.5,
-        _DTYPES[q.dtype])
+        dh, k_pool.shape[1], k_pool.shape[0], q_offset, kv_len, int(causal),
+        window or 0, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+        1.0 / dh ** 0.5, _DTYPES[q.dtype])
     _raise_on(lib, err)
     flash_prefill.launches += 1
 
 
-def prefill_attention(q, k, v, *, window: Optional[int] = None):
-    """Causal self-attention of whole sequences, with
-    ``blockwise_attention``'s numerics. Arguments and result as
-    :func:`repro_torch.kernels.ref.prefill_attention`.
+def prefill_attention(q, k, v, *, window: Optional[int] = None,
+                      causal: bool = True):
+    """Attention of whole sequences, with ``blockwise_attention``'s
+    numerics: causal self-attention (k, v of q's length), or with
+    ``causal=False`` attention over every key of k, v of any length Skv.
+    Arguments and result as :func:`repro_torch.kernels.ref.
+    prefill_attention`. A window is taken with ``causal`` only (nothing
+    runs a windowed non-causal attention on this path; the contiguous
+    :func:`flash_prefill` computes one).
 
-    On CUDA: q a contiguous (B, S, H, Dh); k and v (B, S, Hkv, Dh) with a
-    unit head_dim stride. Sequence ``b`` is one launch of the engine form
-    with k and v as a pool of B pages of S tokens and page ids ``[b]``:
-    B launches, no copy of K/V.
+    On CUDA: q a contiguous (B, S, H, Dh); k and v (B, Skv, Hkv, Dh) with
+    a unit head_dim stride. Sequence ``b`` is one launch of the engine
+    form with k and v as a pool of B pages of Skv tokens and page ids
+    ``[b]``: B launches, no copy of K/V.
     """
     _same_device("prefill_attention", q, k=k, v=v)
     if window is not None and window < 1:
         raise ValueError(f"prefill_attention: window must be >= 1, got "
                          f"{window}")
+    if window is not None and not causal:
+        raise ValueError("prefill_attention: a window needs causal=True")
+    if k.dim() != 4 or k.shape[0] != q.shape[0] or \
+            (causal and k.shape[1] != q.shape[1]):
+        raise ValueError(f"prefill_attention: k and v must be (B, "
+                         f"{'S' if causal else 'Skv'}, Hkv, Dh) with q's "
+                         f"B={q.shape[0]}" + (f" and S={q.shape[1]}"
+                                              if causal else "") +
+                         f", got {tuple(k.shape)}")
     if q.device.type == "cpu":
-        return ref.prefill_attention(q, k, v, window=window)
+        return ref.prefill_attention(q, k, v, window=window, causal=causal)
     _check_common("prefill_attention", q, k, v)
     b, s = q.shape[:2]
-    if k.dim() != 4 or k.shape[:2] != (b, s):
-        raise ValueError(f"prefill_attention: k and v must be (B, S, Hkv, "
-                         f"Dh) with q's B={b} and S={s}, got "
-                         f"{tuple(k.shape)}")
-    out = torch.empty_like(q)
-    if s:
+    skv = k.shape[1]
+    out = torch.empty_like(q) if skv else torch.zeros_like(q)
+    if s and skv:  # with no keys every row is zeros
         pages = torch.arange(b, dtype=torch.int32, device=q.device)
         for i in range(b):
             _launch_paged(q[i:i + 1], k, v, pages[i:i + 1], out[i:i + 1], 0,
-                          window)
+                          skv, causal, window)
     return out
 
 

@@ -130,13 +130,16 @@ def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
                                q_offset=q_offset)
 
 
-def prefill_attention(q, k, v, *, window: Optional[int] = None):
-    """Causal self-attention of whole sequences, as the reference's
-    ``Model.prefill`` computes it: ``blockwise_attention`` (bf16 q, k, v
-    and probabilities, float32 sums). q: (B, S, H, Dh); k, v: (B, S, Hkv,
-    Dh); key ``j`` is valid for query ``i`` iff ``j <= i`` and, with a
-    window, ``j > i - window``. Output in q's type."""
-    return blockwise_attention(q, k, v, causal=True, window=window)
+def prefill_attention(q, k, v, *, window: Optional[int] = None,
+                      causal: bool = True):
+    """Attention of whole sequences, as the reference's ``Model.prefill``
+    computes it: ``blockwise_attention`` (bf16 q, k, v and probabilities,
+    float32 sums). q: (B, S, H, Dh); k, v: (B, Skv, Hkv, Dh), Skv = S when
+    causal. Causal: key ``j`` is valid for query ``i`` iff ``j <= i`` and,
+    with a window, ``j > i - window``; otherwise every key is valid (an
+    encoder's self-attention, a decoder's cross-attention). Output in q's
+    type; zeros where there is no key."""
+    return blockwise_attention(q, k, v, causal=causal, window=window)
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int):

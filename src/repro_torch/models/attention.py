@@ -139,8 +139,8 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
 
 def gqa_layer(cfg, p, x, positions, attend, mlp_fn=None):
     """One full GQA transformer layer, parameterised by the attention
-    callable: the layer body shared by ``Model.forward`` and the engine's
-    paged prefill and decode.
+    callable: the layer body of the engine's paged prefill and decode
+    (``Model`` runs the same ops through ``_layer_forward``).
 
     ``x``: (B, S, D); ``positions``: (S,) or (B, S) absolute positions.
     ``attend(q, k, v) -> ctx`` receives roped q (B, S, H, Dh) and roped k /
@@ -163,27 +163,42 @@ def gqa_layer(cfg, p, x, positions, attend, mlp_fn=None):
     return y
 
 
-def gqa_forward(cfg, p, x, positions, *, window=None,
-                return_kv: bool = False, attend=None):
-    """Full-sequence causal GQA self-attention block (no norm, no
-    residual). Returns the output, and with ``return_kv`` also the roped
-    (k, v). ``attend(q, k, v) -> ctx`` replaces ``blockwise_attention``
+def gqa_forward(cfg, p, x, positions, *, window=None, causal: bool = True,
+                kv_override=None, return_kv: bool = False, attend=None):
+    """Full-sequence GQA attention block (no norm, no residual). Returns
+    the output, and with ``return_kv`` also the (k, v) it attended over.
+    ``kv_override=(k, v)`` is cross-attention (``attention.py:219-246``):
+    K/V (B, Skv, Hkv, Dh) come from the encoder (:func:`encode_kv`) and
+    neither q nor k is roped. ``attend(q, k, v) -> ctx`` replaces
+    ``blockwise_attention(causal=causal, window=window)``
     (``Model.prefill`` passes the kernel's dispatch)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = apply_rope(dense(p["wq"], x).reshape(b, s, h, dh), positions,
-                   cfg.rope_theta)
-    k = apply_rope(dense(p["wk"], x).reshape(b, s, hkv, dh), positions,
-                   cfg.rope_theta)
-    v = dense(p["wv"], x).reshape(b, s, hkv, dh)
+    q = dense(p["wq"], x).reshape(b, s, h, dh)
+    if kv_override is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(dense(p["wk"], x).reshape(b, s, hkv, dh), positions,
+                       cfg.rope_theta)
+        v = dense(p["wv"], x).reshape(b, s, hkv, dh)
+    else:
+        k, v = kv_override
     if attend is None:
-        out = blockwise_attention(q, k, v, causal=True, window=window)
+        out = blockwise_attention(q, k, v, causal=causal, window=window)
     else:
         out = attend(q, k, v)
     y = dense(p["wo"], out.reshape(b, s, h * dh))
     if return_kv:
         return y, (k, v)
     return y
+
+
+def encode_kv(cfg, p, x):
+    """The encoder output x (B, Skv, D) projected to cross-attention K/V,
+    each (B, Skv, Hkv, Dh), without rope (``attention.py:249-255``)."""
+    b, s, _ = x.shape
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim
+    return dense(p["wk"], x).reshape(b, s, hkv, dh), \
+        dense(p["wv"], x).reshape(b, s, hkv, dh)
 
 
 # ---------------------------------------------------------------------------
@@ -213,30 +228,38 @@ def _decode_mask(cache_pos, pos, window):
     return valid
 
 
-def gqa_decode(cfg, p, x, cache: KVCache, pos, *, window=None):
+def gqa_decode(cfg, p, x, cache: KVCache, pos, *, window=None,
+               kv_override=None):
     """x: (B, 1, D); pos: (B,) absolute position of the new token. Writes
     its K/V into the ring and attends over the valid slots, as the
-    reference does (``attention.py:282-324``, without cross-attention):
-    bfloat16 q, k, v and probabilities, float32 scores and sums. Returns
-    (y (B, 1, D), the new cache)."""
+    reference does (``attention.py:282-324``): bfloat16 q, k, v and
+    probabilities, float32 scores and sums. With ``kv_override=(k, v)``
+    (cross-attention over the encoder's K/V, (B, Skv, Hkv, Dh)) nothing is
+    roped or written and every key is valid; ``cache`` is returned as it
+    came (the reference passes None). Returns (y (B, 1, D), the cache)."""
     b = x.shape[0]
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = apply_rope(dense(p["wq"], x).reshape(b, 1, h, dh), pos[:, None],
-                   cfg.rope_theta)
-    knew = apply_rope(dense(p["wk"], x).reshape(b, 1, hkv, dh),
-                      pos[:, None], cfg.rope_theta)
-    vnew = dense(p["wv"], x).reshape(b, 1, hkv, dh)
-    slot = cache_update(cache.pos, pos)
-    cache = KVCache(k=_write_slot(cache.k, slot, knew[:, 0]),
-                    v=_write_slot(cache.v, slot, vnew[:, 0]),
-                    pos=_write_slot(cache.pos, slot, pos))
-    mask = _decode_mask(cache.pos, pos, window)  # (B, Sc)
+    q = dense(p["wq"], x).reshape(b, 1, h, dh)
+    if kv_override is None:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        knew = apply_rope(dense(p["wk"], x).reshape(b, 1, hkv, dh),
+                          pos[:, None], cfg.rope_theta)
+        vnew = dense(p["wv"], x).reshape(b, 1, hkv, dh)
+        slot = cache_update(cache.pos, pos)
+        cache = KVCache(k=_write_slot(cache.k, slot, knew[:, 0]),
+                        v=_write_slot(cache.v, slot, vnew[:, 0]),
+                        pos=_write_slot(cache.pos, slot, pos))
+        mask = _decode_mask(cache.pos, pos, window)  # (B, Sc)
+        k, v = cache.k, cache.v
+    else:
+        k, v = kv_override
+        mask = None  # every encoder position
     qg = _bf16(q.reshape(b, hkv, h // hkv, dh))
-    scores = torch.einsum("bhgd,bshd->bhgs", qg, _bf16(cache.k)) \
-        / math.sqrt(dh)
-    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, _bf16(k)) / math.sqrt(dh)
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", _bf16(probs), _bf16(cache.v))
+    out = torch.einsum("bhgs,bshd->bhgd", _bf16(probs), _bf16(v))
     out = out.reshape(b, 1, h * dh).to(x.dtype)
     return dense(p["wo"], out), cache
 

@@ -1,10 +1,18 @@
-"""Decoder stack (``repro.models.transformer``) for every decoder-only plan
-of the reference: dense GQA, global or sliding window (danube:
+"""The transformer stack (``repro.models.transformer``) for every plan of
+the reference: dense GQA, global or sliding window (danube:
 ``[24 x swa-dense]``), MoE on GQA (llama4-scout: ``[48 x gqa-moe]``), MLA +
 MoE (deepseek-v2: ``[1 x mla-dense, 59 x mla-moe]``; a MoE plan starts
 with its ``first_k_dense`` dense layers), the attention-free SSM plan
-(mamba2: ``[48 x ssm]``) and the hybrid plan, attention and SSM heads side
-by side in every layer (hymba: ``[1 x global, 15 x swa] x 2``).
+(mamba2: ``[48 x ssm]``), the hybrid plan, attention and SSM heads side
+by side in every layer (hymba: ``[1 x global, 15 x swa] x 2``), and the
+encoder-decoder plan (seamless-m4t: an encoder ``[12 x gqa-dense]`` of
+non-causal self-attention, and decoder layers ``[12 x gqa-dense, cross]``
+that attend over the encoder's output after their self-attention).
+
+Media (``frontend`` "vision" or "audio") are precomputed embeddings that
+replace the first positions of the embedded tokens (``_embed_with_media``):
+of the decoder's input for a vision model (internvl2), of the encoder's
+for an audio one (seamless); the token ids under them are ignored.
 
 A model is a sequence of **segments**: runs of identical layers whose
 parameters are stacked along a leading layer axis, exactly as the
@@ -20,13 +28,17 @@ decode caches, as the reference's do (``transformer.py:396-525``): a GQA
 segment keeps a ring-buffer :class:`KVCache` (capacity the window in a
 sliding-window segment, else the sequence capacity), an MLA segment a
 latent :class:`MLACache`, an SSM segment an :class:`SSMCache` (conv tail
-and float32 state), a hybrid one the pair ``(KVCache, SSMCache)``. Leaves
-carry the segment's stacked layer axis where it has more than one layer.
-On CUDA tensors the prefill's GQA and hybrid attention launches the
-``flash_prefill`` kernel (its engine form, with ``blockwise_attention``'s
-numerics) and the SSM heads the ``ssd_scan`` kernel; the decode attention
-is plain PyTorch, as the reference's is XLA. The paged engine serves only
-uniform GQA or MLA stacks; hybrid and SSM models run here.
+and float32 state), a hybrid one the pair ``(KVCache, SSMCache)``, and a
+cross segment the dict ``{"self": KVCache, "ck", "cv"}`` with the
+encoder's K/V (B, S_enc, Hkv, Dh) of each layer. Leaves carry the
+segment's stacked layer axis where it has more than one layer. On CUDA
+tensors the prefill's attention launches the ``flash_prefill`` kernel
+(its engine form, with ``blockwise_attention``'s numerics): causal
+self-attention, the encoder's non-causal self-attention and the decoder's
+cross-attention; the SSM heads launch the ``ssd_scan`` kernel. The decode
+attention, self and cross, is plain PyTorch, as the reference's is XLA.
+The paged engine serves only uniform GQA or MLA stacks without
+cross-attention; hybrid, SSM and encoder-decoder models run here.
 """
 
 from __future__ import annotations
@@ -51,20 +63,19 @@ class Segment:
     mixer: str  # "gqa" | "mla" | "ssm" | "hybrid"
     mlp_kind: str  # "dense" | "moe" | "none"
     attn_kind: str  # "global" | "swa" | "none"
+    cross: bool = False  # decoder cross-attention (encoder-decoder)
 
 
 def stack_plan(cfg: ArchConfig) -> List[Segment]:
-    """The reference's plan (``transformer.py:51-76``) for a GQA or MLA
-    decoder, dense or MoE, an SSM decoder or a hybrid one; the
-    encoder-decoder family comes with its slice of the port."""
+    """The reference's decoder plan (``transformer.py:51-76``): a GQA or
+    MLA stack, dense or MoE, whose segments attend over an encoder's
+    output where the config has one (``cross``), an SSM stack or a hybrid
+    one."""
     if cfg.family == "ssm":
         if cfg.d_ff:
             raise NotImplementedError(
                 f"{cfg.arch_id}: an SSM plan with an MLP is not ported yet")
         return [Segment(cfg.num_layers, "ssm", "none", "none")]
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the encoder-decoder plan is not ported yet")
     if cfg.is_hybrid:
         # a global layer, then a run of window layers, repeated
         segs, i = [], 0
@@ -82,11 +93,18 @@ def stack_plan(cfg: ArchConfig) -> List[Segment]:
         segs = []
         if cfg.first_k_dense:
             segs.append(Segment(cfg.first_k_dense, mixer, "dense",
-                                attn_kind))
+                                attn_kind, cross=cfg.is_encdec))
         segs.append(Segment(cfg.num_layers - cfg.first_k_dense, mixer, "moe",
-                            attn_kind))
+                            attn_kind, cross=cfg.is_encdec))
         return segs
-    return [Segment(cfg.num_layers, mixer, "dense", attn_kind)]
+    return [Segment(cfg.num_layers, mixer, "dense", attn_kind,
+                    cross=cfg.is_encdec)]
+
+
+def encoder_plan(cfg: ArchConfig) -> List[Segment]:
+    """The encoder's one segment of dense GQA layers
+    (``transformer.py:79-80``); run non-causally."""
+    return [Segment(cfg.encoder_layers, "gqa", "dense", "global")]
 
 
 def layer_params(p_seg, i: int):
@@ -100,12 +118,12 @@ def seg_window(cfg: ArchConfig, seg: Segment):
     return cfg.sliding_window if seg.attn_kind == "swa" else None
 
 
-def _plain_attention(q, k, v, window):
-    return attn.blockwise_attention(q, k, v, causal=True, window=window)
+def _plain_attention(q, k, v, window, causal=True):
+    return attn.blockwise_attention(q, k, v, causal=causal, window=window)
 
 
-def _kernel_attention(q, k, v, window):
-    return prefill_attention(q, k, v, window=window)
+def _kernel_attention(q, k, v, window, causal=True):
+    return prefill_attention(q, k, v, window=window, causal=causal)
 
 
 def _mlp_residual(cfg, seg: Segment, p, x, mlp_fn):
@@ -117,29 +135,30 @@ def _mlp_residual(cfg, seg: Segment, p, x, mlp_fn):
 
 
 def _layer_forward(cfg, seg: Segment, p, x, positions, *, attention,
-                   mlp_fn=None, collect: bool = False):
-    """One full-sequence layer (``transformer.py:109-177``, without
-    cross-attention). ``attention(q, k, v, window) -> ctx`` is the causal
-    self-attention of GQA and hybrid layers. Returns (x, seed): with
-    ``collect`` the seed of the decode cache (gqa: (k, v); mla: (ckv,
-    krope); ssm: SSMCache; hybrid: ((k, v), SSMCache)), else None."""
+                   mlp_fn=None, collect: bool = False, causal: bool = True,
+                   enc_out=None):
+    """One full-sequence layer (``transformer.py:109-177``).
+    ``attention(q, k, v, window, causal) -> ctx`` is the attention of GQA,
+    hybrid and cross layers; ``causal=False`` in the encoder. A cross
+    segment attends over ``enc_out`` (B, S_enc, D) after its
+    self-attention. Returns (x, seed): with ``collect`` the seed of the
+    decode cache (gqa: (k, v); mla: (ckv, krope); ssm: SSMCache; hybrid:
+    ((k, v), SSMCache); a cross segment: (that seed, (ck, cv))), else
+    None."""
     window = seg_window(cfg, seg)
 
     def attend(q, k, v):
-        return attention(q, k, v, window)
+        return attention(q, k, v, window, causal)
 
-    if seg.mixer == "gqa":
-        kv = []
-
-        def attend_keep(q, k, v):
-            kv.append((k, v))
-            return attend(q, k, v)
-
-        x = attn.gqa_layer(cfg, p, x, positions, attend_keep, mlp_fn)
-        return x, (kv[0] if collect else None)
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     seed = None
-    if seg.mixer == "mla":
+    if seg.mixer == "gqa":
+        out = attn.gqa_forward(cfg, p["attn"], h, positions,
+                               return_kv=collect, attend=attend)
+        if collect:
+            out, seed = out
+        x = x + out
+    elif seg.mixer == "mla":
         out = attn.mla_forward(cfg, p["attn"], h, positions,
                                return_latent=collect)
         if collect:
@@ -158,6 +177,14 @@ def _layer_forward(cfg, seg: Segment, p, x, positions, *, attention,
             (a, kv), (m, sc) = a, m
             seed = (kv, sc)
         x = x + 0.5 * (a + m)
+    if seg.cross:
+        hc = rms_norm(p["ln_cross"], x, cfg.norm_eps)
+        ckv = attn.encode_kv(cfg, p["cross"], enc_out)
+        x = x + attn.gqa_forward(
+            cfg, p["cross"], hc, positions, kv_override=ckv,
+            attend=lambda q, k, v: attention(q, k, v, None, False))
+        if collect:
+            seed = (seed, ckv)
     return _mlp_residual(cfg, seg, p, x, mlp_fn), seed
 
 
@@ -171,9 +198,13 @@ def mla_forward_layer(cfg, p, x, positions, mlp_fn=None):
 
 
 def _layer_decode(cfg, seg: Segment, p, x, pos, cache):
-    """One-token layer step against its cache (``transformer.py:180-223``,
-    without cross-attention). Returns (x, the new cache)."""
+    """One-token layer step against its cache (``transformer.py:
+    180-223``); a cross segment then attends over its cached encoder K/V.
+    Returns (x, the new cache)."""
     window = seg_window(cfg, seg)
+    cross = cache if seg.cross else None
+    if seg.cross:
+        cache = cross["self"]
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     if seg.mixer == "gqa":
         out, cache = attn.gqa_decode(cfg, p["attn"], h, cache, pos,
@@ -192,15 +223,23 @@ def _layer_decode(cfg, seg: Segment, p, x, pos, cache):
         m, ssm_c = ssm_mod.ssm_decode(cfg, p["ssm"], h, ssm_c)
         x = x + 0.5 * (a + m)
         cache = (kv_c, ssm_c)
+    if seg.cross:
+        hc = rms_norm(p["ln_cross"], x, cfg.norm_eps)
+        out, _ = attn.gqa_decode(cfg, p["cross"], hc, None, pos,
+                                 kv_override=(cross["ck"], cross["cv"]))
+        x = x + out
+        cache = dict(cross, self=cache)
     mlp_fn = (lambda pm, h2: moe_forward(cfg, pm, h2)) \
         if seg.mlp_kind == "moe" else None
     return _mlp_residual(cfg, seg, p, x, mlp_fn), cache
 
 
-# -- cache trees: NamedTuples and tuples of tensors ---------------------------
+# -- cache trees: NamedTuples, tuples and dicts of tensors --------------------
 
 def _tree_map(fn, *trees):
     t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, tuple):
         parts = [_tree_map(fn, *leaves) for leaves in zip(*trees)]
         return type(t0)(*parts) if hasattr(t0, "_fields") else tuple(parts)
@@ -224,9 +263,10 @@ def segment_cache_capacity(cfg, seg: Segment, seq_len: int) -> int:
 
 
 def _empty_segment_cache(cfg, seg: Segment, batch: int, seq_len: int,
-                         device):
+                         device, enc_len: int = 0):
     """Zeros in the model type, int32 positions -1, the float32 SSM state;
-    the segment's layer axis first where it has several layers
+    a cross segment's ``{"self", "ck", "cv"}`` with ``enc_len`` encoder
+    positions; the segment's layer axis first where it has several layers
     (``transformer.py:236-273``)."""
     cap = segment_cache_capacity(cfg, seg, seq_len)
     lead = (seg.n,) if seg.n > 1 else ()
@@ -249,6 +289,11 @@ def _empty_segment_cache(cfg, seg: Segment, batch: int, seq_len: int,
             state=zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim,
                         cfg.ssm_state, dt=torch.float32))
 
+    if seg.cross:
+        shape = (batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+        base = _empty_segment_cache(cfg, dataclasses.replace(seg, cross=False),
+                                    batch, seq_len, device)
+        return {"self": base, "ck": zeros(*shape), "cv": zeros(*shape)}
     if seg.mixer == "gqa":
         return kv()
     if seg.mixer == "mla":
@@ -277,14 +322,17 @@ def _ring_set_pos(buf, posvec, slots):
 
 class Model:
     """Parameters are passed in, as in the reference: a nested dict from
-    :func:`repro_torch.bridge.init_params` or the bridge."""
+    :func:`repro_torch.bridge.init_params` or the bridge; an
+    encoder-decoder model's encoder under ``params["encoder"]``
+    (``{"segments", "final_norm"}``)."""
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
         self.plan = stack_plan(cfg)
+        self.enc_plan = encoder_plan(cfg) if cfg.is_encdec else []
 
     def layers(self, params):
-        """Yield ``(seg, layer_index, layer_params)`` over the whole stack."""
+        """Yield ``(seg, layer_index, layer_params)`` over the decoder."""
         li = 0
         for seg, p_seg in zip(self.plan, params["segments"]):
             for j in range(seg.n):
@@ -298,13 +346,14 @@ class Model:
         return unembed(params["embed"], x, cfg.vocab_size,
                        fp32=cfg.logits_fp32)
 
-    def _run_stack(self, params, tokens, *, attention, collect: bool):
-        """Embed and run every layer. Returns (x, aux summed over the MoE
-        layers, one seed per segment stacked along its layer axis)."""
+    def _run_stack(self, plan, seg_params, x, *, attention, collect: bool,
+                   causal: bool = True, enc_out=None):
+        """Run every layer of ``plan`` on the embedded ``x``. Returns (x,
+        aux summed over the MoE layers, one seed per segment stacked along
+        its layer axis)."""
         cfg = self.cfg
-        x = embed(params["embed"], tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        aux = [torch.zeros((), device=tokens.device)]
+        positions = torch.arange(x.shape[1], device=x.device)
+        aux = [torch.zeros((), device=x.device)]
 
         def moe_fn(pm, h):
             out, layer_aux = moe_forward(cfg, pm, h, return_aux=True)
@@ -312,54 +361,102 @@ class Model:
             return out
 
         seeds = []
-        for seg, p_seg in zip(self.plan, params["segments"]):
+        for seg, p_seg in zip(plan, seg_params):
             mlp_fn = moe_fn if seg.mlp_kind == "moe" else None
             per_layer = []
             for j in range(seg.n):
                 p = p_seg if seg.n == 1 else layer_params(p_seg, j)
                 x, seed = _layer_forward(cfg, seg, p, x, positions,
                                          attention=attention, mlp_fn=mlp_fn,
-                                         collect=collect)
+                                         collect=collect, causal=causal,
+                                         enc_out=enc_out)
                 per_layer.append(seed)
             if collect:
                 seeds.append(per_layer[0] if seg.n == 1
                              else _tree_stack(per_layer))
         return x, aux[0], seeds
 
+    def _embed_with_media(self, params, tokens, media):
+        """Embedded tokens whose first ``media.shape[1]`` positions are the
+        media embeddings (B, M, D) instead (``transformer.py:353-358``)."""
+        x = embed(params["embed"], tokens)
+        if media is not None:
+            m = media.shape[1]
+            x = torch.cat([media.to(x.dtype), x[:, m:]], dim=1)
+        return x
+
+    def encode(self, params, encoder_tokens, media=None, *,
+               attention=_plain_attention):
+        """The encoder's output (B, S_enc, D): embedded tokens (and media),
+        non-causal self-attention layers, the encoder's final norm
+        (``transformer.py:360-365``)."""
+        x = self._embed_with_media(params, encoder_tokens, media)
+        x, _, _ = self._run_stack(self.enc_plan,
+                                  params["encoder"]["segments"], x,
+                                  attention=attention, collect=False,
+                                  causal=False)
+        return rms_norm(params["encoder"]["final_norm"], x,
+                        self.cfg.norm_eps)
+
+    def _decoder_input(self, params, tokens, media, encoder_tokens,
+                       attention):
+        """(embedded decoder input, encoder output or None): media go to
+        the encoder of an audio model and to the decoder otherwise
+        (``transformer.py:372-378``)."""
+        enc_out = None
+        if self.cfg.is_encdec:
+            audio = self.cfg.frontend == "audio"
+            enc_out = self.encode(params, encoder_tokens,
+                                  media if audio else None,
+                                  attention=attention)
+            media = None if audio else media
+        return self._embed_with_media(params, tokens, media), enc_out
+
     @torch.no_grad()
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, *, media=None, encoder_tokens=None):
         """Teacher-forced logits (B, S, V) and the MoE aux loss summed over
         the MoE layers (zero for other plans), as the reference returns
-        them (``transformer.py:368-385``). Attention is the plain
-        ``blockwise_attention`` on any device."""
-        x, aux, _ = self._run_stack(params, tokens,
+        them (``transformer.py:368-385``). ``media``: (B, M, D) embeddings
+        in place of the first M positions; ``encoder_tokens``: (B, S_enc)
+        the encoder's input of an encoder-decoder model. Attention is the
+        plain ``blockwise_attention`` on any device."""
+        x, enc_out = self._decoder_input(params, tokens, media,
+                                         encoder_tokens, _plain_attention)
+        x, aux, _ = self._run_stack(self.plan, params["segments"], x,
                                     attention=_plain_attention,
-                                    collect=False)
+                                    collect=False, enc_out=enc_out)
         return self._logits(params, x), aux
 
-    def init_cache(self, batch: int, seq_len: int, *, device="cuda"):
+    def init_cache(self, batch: int, seq_len: int, *, device="cuda",
+                   enc_len: int = 0):
         """Empty decode caches for ``batch`` sequences of up to
         ``seq_len`` positions, one per segment (``transformer.py:
-        396-401``). An SSM cache's size does not depend on ``seq_len``."""
+        396-401``); a cross segment's holds ``enc_len`` encoder positions.
+        An SSM cache's size does not depend on ``seq_len``."""
         device = resolve_device(device)
-        return [_empty_segment_cache(self.cfg, seg, batch, seq_len, device)
+        return [_empty_segment_cache(self.cfg, seg, batch, seq_len, device,
+                                     enc_len)
                 for seg in self.plan]
 
     @torch.no_grad()
-    def prefill(self, params, tokens, *, seq_capacity: int,
-                last_idx: Optional[torch.Tensor] = None,
+    def prefill(self, params, tokens, *, seq_capacity: int, media=None,
+                encoder_tokens=None, last_idx: Optional[torch.Tensor] = None,
                 return_raw_kv: bool = False):
         """Full prompt pass (``transformer.py:403-433``). Returns the
         logits (B, V) at ``last_idx`` (default the last position) and the
         decode caches for up to ``seq_capacity`` positions, ring buffers
-        seeded with the prompt's last positions; with ``return_raw_kv``
-        the per-segment seeds of the whole prompt instead. On CUDA the
-        GQA and hybrid attention launches ``flash_prefill`` and the SSM
-        heads ``ssd_scan``."""
+        seeded with the prompt's last positions (and a cross segment's
+        encoder K/V); with ``return_raw_kv`` the per-segment seeds of the
+        whole prompt instead. ``media`` and ``encoder_tokens`` as in
+        :meth:`forward`. On CUDA the attention (the encoder's, the
+        decoder's self- and cross-attention) launches ``flash_prefill``
+        and the SSM heads ``ssd_scan``."""
         b, s = tokens.shape
-        x, _, seeds = self._run_stack(params, tokens,
+        x, enc_out = self._decoder_input(params, tokens, media,
+                                         encoder_tokens, _kernel_attention)
+        x, _, seeds = self._run_stack(self.plan, params["segments"], x,
                                       attention=_kernel_attention,
-                                      collect=True)
+                                      collect=True, enc_out=enc_out)
         if last_idx is None:
             last_idx = torch.full((b,), s - 1, device=tokens.device)
         last_h = x[torch.arange(b, device=x.device), last_idx]
@@ -372,32 +469,42 @@ class Model:
     def _seed_caches(self, seeds, b: int, s: int, capacity: int, device):
         """Prefill seeds into ring-buffer decode caches
         (``transformer.py:435-481``)."""
-        cfg = self.cfg
         caches = []
         for seg, seed in zip(self.plan, seeds):
-            if seg.mixer == "ssm":
-                caches.append(seed)  # the forward pass's conv tail and state
-                continue
-            cap = segment_cache_capacity(cfg, seg, capacity)
-            take = min(cap, s)
-            posvec = torch.arange(s - take, s, device=device)
-            slots = posvec % cap
-            empty = _empty_segment_cache(cfg, seg, b, capacity, device)
-            if seg.mixer == "mla":
-                (ckv, krope), e = seed, empty
-                caches.append(attn.MLACache(
-                    ckv=_ring_set(e.ckv, ckv, slots, take, s, ndims=1),
-                    krope=_ring_set(e.krope, krope, slots, take, s, ndims=1),
-                    pos=_ring_set_pos(e.pos, posvec, slots)))
-                continue
-            hybrid = seg.mixer == "hybrid"
-            k, v = seed[0] if hybrid else seed
-            e = empty[0] if hybrid else empty
-            kvc = attn.KVCache(k=_ring_set(e.k, k, slots, take, s),
-                               v=_ring_set(e.v, v, slots, take, s),
-                               pos=_ring_set_pos(e.pos, posvec, slots))
-            caches.append((kvc, seed[1]) if hybrid else kvc)
+            cross_kv = None
+            if seg.cross:
+                seed, cross_kv = seed
+                seg = dataclasses.replace(seg, cross=False)  # the ring only
+            caches.append(self._seed_ring(seg, seed, b, s, capacity, device))
+            if cross_kv is not None:
+                ck, cv = cross_kv
+                caches[-1] = {"self": caches[-1], "ck": ck, "cv": cv}
         return caches
+
+    def _seed_ring(self, seg: Segment, seed, b: int, s: int, capacity: int,
+                   device):
+        """One segment's decode cache from its prefill seed."""
+        cfg = self.cfg
+        if seg.mixer == "ssm":
+            return seed  # the forward pass's conv tail and state
+        cap = segment_cache_capacity(cfg, seg, capacity)
+        take = min(cap, s)
+        posvec = torch.arange(s - take, s, device=device)
+        slots = posvec % cap
+        empty = _empty_segment_cache(cfg, seg, b, capacity, device)
+        if seg.mixer == "mla":
+            (ckv, krope), e = seed, empty
+            return attn.MLACache(
+                ckv=_ring_set(e.ckv, ckv, slots, take, s, ndims=1),
+                krope=_ring_set(e.krope, krope, slots, take, s, ndims=1),
+                pos=_ring_set_pos(e.pos, posvec, slots))
+        hybrid = seg.mixer == "hybrid"
+        k, v = seed[0] if hybrid else seed
+        e = empty[0] if hybrid else empty
+        kvc = attn.KVCache(k=_ring_set(e.k, k, slots, take, s),
+                           v=_ring_set(e.v, v, slots, take, s),
+                           pos=_ring_set_pos(e.pos, posvec, slots))
+        return (kvc, seed[1]) if hybrid else kvc
 
     @torch.no_grad()
     def decode_step(self, params, tokens, pos, caches):

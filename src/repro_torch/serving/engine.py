@@ -212,6 +212,13 @@ class PagedEngine:
                              "only, or MLA stacks only (an SSM or hybrid "
                              "model runs Model.prefill and "
                              "Model.decode_step)")
+        # the reference's engine checks the mixers alone and would serve an
+        # encoder-decoder plan as a decoder-only one, without its encoder
+        # or cross-attention; here it is refused
+        if any(seg.cross for seg in self.model.plan):
+            raise ValueError(f"{cfg.arch_id}: this engine has no encoder or "
+                             "cross-attention (an encoder-decoder model "
+                             "runs Model.prefill and Model.decode_step)")
         # GQA pools hold per-head (k, v); MLA pools the shared latent
         # (ckv, krope)
         self.kv_layout = KVPageLayout.from_arch(cfg)

@@ -1,5 +1,5 @@
 """The port's ``PagedEngine`` against the JAX ``PagedEngine`` on the GQA
-configs of this slice, at smoke size, in float32 (``logits_fp32``): the
+configs, at smoke size, in float32 (``logits_fp32``): the
 same requests on the same weights (carried over by the bridge) must give
 identical greedy tokens.
 
@@ -75,10 +75,12 @@ def _run(eng, R, plan):
 
 
 @pytest.mark.parametrize("arch", ["paper-opt-13b", "granite-20b",
-                                  "command-r-35b", "mistral-large-123b"])
+                                  "command-r-35b", "mistral-large-123b",
+                                  "internvl2-26b"])
 def test_dense_engine_matches_jax_engine(arch):
     """Chunked prefill (a 16-token budget), a late join while the others
-    decode, and a mid-page prompt end."""
+    decode, and a mid-page prompt end. internvl2-26b is served text-only,
+    as the reference's engine serves it (neither engine takes media)."""
     je, te = _engines(arch, 0, num_pages=64, page_size=8, max_slots=4,
                       max_tokens_per_iter=16)
     rng = np.random.default_rng(3)

@@ -12,7 +12,8 @@ Inputs are made with numpy from a seed. Tolerances are those of
 partials m to 2e-5 and l (a sum of up to a few hundred terms) to 1e-4.
 The engine form of flash_prefill rounds its probabilities to bfloat16, so
 a one-ulp float32 difference in a score can flip a rounding (2**-8
-relative): it is held at 3e-2 in float32 too. ssd_scan returns float32
+relative): it is held at 3e-2 in float32 too, and its non-causal form
+relative to the largest output (NC_TOL). ssd_scan returns float32
 from the same upcast inputs in both versions, in another order of sums:
 2e-4, as ``tests/test_kernels.py`` holds the Pallas kernel.
 """
@@ -33,6 +34,14 @@ BF16 = dict(rtol=3e-2, atol=3e-2)
 # a bf16 result of float32 math against the plain version's: at most one
 # bf16 rounding apart (2**-7 of the value) plus the float32 difference
 BF16_OUT = dict(rtol=2.0 ** -7, atol=1e-5)
+# prefill_attention(causal=False) against its plain version, of the largest
+# |plain| value: (worst, median) by dtype. Both sides round q, k, v and the
+# probabilities to bf16 alike; a bf16 output may differ by one ulp (at most
+# 2**-7 of the largest value). On an H100 the kernel came within 9.8e-4
+# (float32) and 3.3e-3 (bf16) worst, 1.5e-7 and 0 in the median; a key
+# count off by one breaks both limits (tests/test_torch_encdec.py::
+# test_non_causal_limits_catch_a_key_count_off_by_one).
+NC_TOL = {torch.float32: (5e-3, 1e-6), torch.bfloat16: (1e-2, 1e-5)}
 
 
 def _inputs(b, h, hkv, dh, ps, nper, seed=0):
@@ -432,6 +441,113 @@ def test_cuda_prefill_attention_raises_instead_of_falling_back(cuda):
         prefill_attention(q.transpose(1, 2), kv, kv)
 
 
+# the encoder's self-attention (S = Skv) and a decoder's cross-attention
+# (S queries over Skv encoder positions): (S, Skv)
+NON_CAUSAL = [(64, 64), (1000, 1000), (1024, 1024)] + [
+    (s, skv) for s in (1, 64, 130) for skv in (16, 1000, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,dh", [(16, 16, 64), (12, 2, 128)])
+@pytest.mark.parametrize("s,skv", NON_CAUSAL)
+def test_cuda_prefill_attention_non_causal_matches_plain(cuda, s, skv, h,
+                                                         hkv, dh, dtype):
+    """``prefill_attention(causal=False)``: seamless's widths (16 heads,
+    G 1, Dh 64) and a G 6 at Dh 128, every key valid, Skv a multiple of
+    the 128-key tile (the TMA path in bf16), not one (1000: the last tile
+    masked, staged through registers) or below one tile (16), against the
+    plain ``blockwise_attention`` within NC_TOL."""
+    rng = np.random.default_rng(s * 7 + skv + h)
+    b = 2
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, dtype) for shape in
+        ((b, s, h, dh), (b, skv, hkv, dh), (b, skv, hkv, dh)))
+    before = flash_prefill.launches
+    got = prefill_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + b
+    want = tref.prefill_attention(q, k, v, causal=False)
+    d = (got.float() - want.float()).abs() / want.float().abs().max()
+    worst, median = NC_TOL[dtype]
+    assert d.max() <= worst and d.median() <= median, \
+        (d.max().item(), d.median().item())
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_attention_non_causal_refuses(cuda):
+    q = torch.zeros(2, 8, 4, 32, device=cuda)
+    kv = torch.zeros(2, 5, 2, 32, device=cuda)
+    with pytest.raises(ValueError):  # no windowed non-causal form
+        prefill_attention(q, kv, kv, causal=False, window=4)
+    with pytest.raises(TypeError):  # float64 has no kernel
+        prefill_attention(q.double(), kv.double(), kv.double(),
+                          causal=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-26b"])
+def test_cuda_encdec_and_media_model_matches_cpu(cuda, arch):
+    """Smoke seamless (2 encoder and 2 decoder layers, 8 audio frames in
+    the encoder) and smoke internvl2 (8 patch embeddings in the decoder),
+    float32: ``Model.prefill`` on the card launches ``flash_prefill`` per
+    layer and sequence (seamless: the encoder's layers, then each decoder
+    layer's self- and cross-attention) and ``paged_attention`` never; its
+    logits and caches, then 4 decode steps' (the CPU run's greedy tokens
+    fed to both), equal the CPU run's within 1e-2 of each quantity's
+    largest magnitude in the worst element and 1e-4 in the median, as the
+    hybrid model is held above; positions exactly."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import Model
+
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
+                              logits_fp32=True)
+    model = Model(cfg)
+    params = init_params(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(5)
+    b, s = 2, 40
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+    media = torch.from_numpy((rng.standard_normal(
+        (b, cfg.num_media_tokens, cfg.d_model)) * 0.02).astype(np.float32))
+    enc = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 72))) \
+        if cfg.is_encdec else None
+    runs, fed = [], []
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        kw = dict(media=media.to(dev))
+        if enc is not None:
+            kw["encoder_tokens"] = enc.to(dev)
+        before = (flash_prefill.launches, paged_attention.launches)
+        logits, caches = model.prefill(p, toks.to(dev), seq_capacity=48,
+                                       **kw)
+        if torch.device(dev).type == "cuda":
+            per_seq = cfg.encoder_layers + cfg.num_layers * (
+                2 if cfg.is_encdec else 1)
+            assert flash_prefill.launches - before[0] == per_seq * b
+            assert paged_attention.launches == before[1]
+        steps = [(logits, caches)]
+        for i in range(4):
+            if len(fed) <= i:
+                fed.append(logits[:, :cfg.vocab_size].argmax(-1))
+            logits, caches = model.decode_step(
+                p, fed[i][:, None].to(dev),
+                torch.full((b,), s + i, device=dev), caches)
+            steps.append((logits, caches))
+        runs.append(steps)
+    for (lc, cc), (lg, cg) in zip(*runs):
+        for a, bb in zip(_cache_leaves([lc, cc]), _cache_leaves([lg, cg])):
+            bb = bb.cpu()
+            if a.dtype == torch.int32:
+                assert torch.equal(a, bb)
+                continue
+            d = (a.float() - bb.float()).abs() / a.float().abs().max()
+            assert d.max() <= 1e-2 and d.median() <= 1e-4, \
+                (float(d.max()), float(d.median()))
+
+
 @pytest.mark.gpu
 def test_cuda_hybrid_model_prefill_matches_cpu(cuda):
     """Smoke hymba at 4 layers (a global layer, then a window segment of
@@ -490,6 +606,8 @@ def test_cuda_hybrid_model_prefill_matches_cpu(cuda):
 
 
 def _cache_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _cache_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [leaf for t in tree for leaf in _cache_leaves(t)]
     return [tree]
