@@ -172,7 +172,24 @@ or the JAX package) and:
    (every expert has a place for every token), by the MoE oracle's rule,
    the witness's generated rows attending as the engine's MLA decode does
    (absorbed, over the latent, float32);
-11. times each kernel at its path's shapes beside its plain version, one
+11. training phase: full-width h2o-danube-1.8b (1.75 B parameters, bf16,
+   random weights from seed 0) trained whole through
+   ``repro_torch.launch.train``'s ``main`` at its defaults (8 x 256 tokens
+   a step from the synthetic corpus, each layer recomputed in the
+   backward, AdamW in place) for 10 steps: every loss finite and the last
+   below the first; prints the loss at each step, the step time (median
+   of the steps after the first two), tokens/s and max_memory_allocated;
+   the same run again at a peak learning rate of 3e-4, its losses printed.
+   Then one train step of each plan family at smoke width in float32
+   (danube, llama4-scout, deepseek-v2, mamba2, hymba, seamless-m4t with
+   its encoder tokens, internvl2 with its media) on the card and on the
+   CPU from the same weights and batch: loss at 2e-5, grad_norm at 1e-3,
+   every parameter within the bound of ``tests/test_torch_training.py``.
+   No kernel launches in the phase (training runs plain attention and
+   ``ssd_chunked``: the kernels have no backward). Then a smoke-width
+   ``{"params", "opt"}`` checkpoint saved and restored bit for bit in a
+   temporary directory under ``build/``, removed after;
+12. times each kernel at its path's shapes beside its plain version, one
    PyTorch library call computing the same function where there is one,
    and the least time the card could take (its bound), and prints them as
    one JSON line; ``flash_prefill``'s engine form is also timed at each of
@@ -3169,6 +3186,201 @@ def internvl_phase(dev, seed: int):
                 serve=serve, oracle=dict(ring=ring, engine=engine), **run)
 
 
+# -- training: Model.loss, AdamW, the corpus, checkpoints, the launcher -------
+
+TRAIN_STEPS = 10
+TRAIN_LOW_LR = 3e-4  # a second full-width run beside the launcher's 1e-3
+TRAIN_FAMILIES = ("h2o-danube-1.8b", "llama4-scout-17b-a16e",
+                  "deepseek-v2-236b", "mamba2-1.3b", "hymba-1.5b",
+                  SEAMLESS_ARCH, INTERNVL_ARCH)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ENC = 2, 64, 40
+# a CUDA train step against the CPU one from the same float32 weights, as
+# tests/test_torch_train_grads.py holds the loss (2e-5) and
+# tests/test_torch_training.py a float32 step (grad_norm 1e-3; parameters
+# within 2 lr (1 + wd |p|) everywhere, beyond 0.1 lr on at most 1%)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_FAR_FRAC = 2e-5, 1e-3, 0.01
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+
+
+def train_batch(cfg, seed: int):
+    """Tokens and labels (TRAIN_BATCH, TRAIN_SEQ), the first labels of row
+    0 masked; media normal x 0.02 and encoder tokens where the config
+    takes them: numpy from a seed, as the CPU tests make them."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    labels = toks.copy()
+    labels[0, :5] = -1
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.num_media_tokens:
+        batch["media"] = (rng.standard_normal(
+            (TRAIN_BATCH, cfg.num_media_tokens, cfg.d_model)) * 0.02) \
+            .astype(np.float32)
+    if cfg.is_encdec:
+        batch["encoder_tokens"] = rng.integers(
+            0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_ENC)).astype(np.int32)
+    return batch
+
+
+def train_step_pair(arch: str, dev, seed: int) -> dict:
+    """One ``make_train_step`` of ``arch`` at smoke width in float32 on the
+    card and one on the CPU, from the same weights (drawn on the CPU and
+    copied over: the two generators differ) and the same batch. Loss,
+    grad_norm, lr and every updated parameter compared; no kernel may
+    launch."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import optimizer
+    from repro_torch.training.train_loop import batch_to, make_train_step
+    from repro_torch.training.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
+                              logits_fp32=True)
+    cpu = init_params(cfg, seed=seed, device="cpu")
+    gpu = tree_map(lambda t: t.to(dev, copy=True), cpu)  # steps in place
+    batch = train_batch(cfg, seed)
+    ocfg = optimizer.OptConfig(**TRAIN_OPT)
+    step = make_train_step(Model(cfg), ocfg)
+    reset_launch_counts()
+    gpu, _, gm = step(gpu, optimizer.init(gpu), batch_to(batch, dev))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"train phase: {arch}'s train step launched "
+                             f"kernels {launches}")
+    cpu, _, cm = step(cpu, optimizer.init(cpu), batch_to(batch, "cpu"))
+    got = {k: float(v) for k, v in gm.items()}
+    want = {k: float(v) for k, v in cm.items()}
+    for k, rtol in (("loss", TRAIN_LOSS_RTOL), ("grad_norm",
+                                                TRAIN_GNORM_RTOL),
+                    ("lr", 1e-6)):
+        if not math.isfinite(got[k]) or \
+                abs(got[k] - want[k]) > rtol * abs(want[k]):
+            raise AssertionError(f"train phase: {arch} {k} {got[k]!r} on "
+                                 f"the card, {want[k]!r} on the CPU")
+    lr, far, total, worst = want["lr"], 0, 0, 0.0
+    for g, c in zip(leaves(gpu), leaves(cpu)):
+        d = (g.cpu() - c).abs()
+        bound = 2 * lr * (1 + ocfg.weight_decay * c.abs()) * (1 + 2e-4) \
+            + 1e-7
+        worst = max(worst, float((d / bound).max()))
+        far += int((d > 0.1 * lr).sum())
+        total += d.numel()
+    if worst > 1 or far > TRAIN_FAR_FRAC * total:
+        raise AssertionError(f"train phase: {arch}'s parameters after a "
+                             f"step: worst {worst:.3f} of the bound, "
+                             f"{far} of {total} beyond 0.1 lr")
+    return dict(loss=got["loss"], loss_cpu=want["loss"],
+                grad_norm=got["grad_norm"], grad_norm_cpu=want["grad_norm"],
+                lr=got["lr"], params=total, beyond_tenth_lr=far,
+                worst_of_bound=worst, launches=launches)
+
+
+def checkpoint_round_trip(dev, seed: int) -> dict:
+    """A smoke-width {"params", "opt"} after one train step on the card,
+    saved and restored in a temporary directory under build/ that is
+    removed after: every leaf equal bit for bit, on its device."""
+    import tempfile
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import checkpoint, optimizer
+    from repro_torch.training.train_loop import batch_to, make_train_step
+    from repro_torch.training.tree import leaves
+
+    cfg = smoke_config("h2o-danube-1.8b")
+    params = init_params(cfg, seed=seed, device=dev)
+    step = make_train_step(Model(cfg), optimizer.OptConfig(**TRAIN_OPT))
+    params, state, _ = step(params, optimizer.init(params),
+                            batch_to(train_batch(cfg, seed), dev))
+    tree = {"params": params, "opt": state}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+        checkpoint.save(d, 1, tree)
+        nbytes = sum(f.stat().st_size for f in Path(d).rglob("*"))
+        if checkpoint.latest_step(d) != 1:
+            raise AssertionError("train phase: checkpoint step not found")
+        back = checkpoint.restore(d, 1, tree)
+    n = 0
+    for got, want in zip(leaves(back), leaves(tree)):
+        if got.dtype != want.dtype or got.device != want.device or \
+                got.shape != want.shape:
+            raise AssertionError(f"train phase: restored leaf {n} is "
+                                 f"{got.dtype} {tuple(got.shape)} on "
+                                 f"{got.device}")
+        same = torch.equal(got.view(torch.int16), want.view(torch.int16)) \
+            if got.dtype == torch.bfloat16 else torch.equal(got, want)
+        if not same:
+            raise AssertionError(f"train phase: restored leaf {n} differs")
+        n += 1
+    return dict(leaves=n, bytes=nbytes)
+
+
+def train_phase(dev, seed: int) -> dict:
+    """Training on the port: full-width h2o-danube-1.8b (24 layers, d 2560,
+    1.75 B parameters, bf16, random weights from seed 0) through the train
+    launcher at its defaults (8 x 256 tokens a step, each layer recomputed
+    in the backward) for TRAIN_STEPS steps: finite losses that fall;
+    then one train step per plan family at smoke width in float32 on the
+    card against the CPU; then a checkpoint round trip. No kernel may
+    launch anywhere in the phase: training runs plain attention and
+    ``ssd_chunked`` (the kernels have no backward)."""
+    from repro_torch.launch import train as train_launcher
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    full = train_launcher.main(["--steps", str(TRAIN_STEPS)])
+    launches = launch_counts()
+    losses = full["losses"]
+    log("train phase: " + ", ".join(
+        f"step {i} loss {x:.4f}" for i, x in enumerate(losses)))
+    if any(launches.values()):
+        raise AssertionError(f"train phase: the launcher launched kernels "
+                             f"{launches}")
+    if not all(math.isfinite(x) for x in losses + full["grad_norms"]) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"train phase: losses {losses}")
+    log(f"train phase: {full['arch']} whole, {TRAIN_STEPS} steps of "
+        f"{full['tokens_per_step']} tokens, step "
+        f"{full['step_median_s'] * 1e3:.1f} ms (median of steps 2-"
+        f"{TRAIN_STEPS - 1}), "
+        f"{full['tokens_per_s']:.0f} tokens/s, max_memory_allocated "
+        f"{full['peak_gib']:.2f} GiB; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same run at a lower peak learning rate: whether the launcher's
+    # 1e-3 (the reference's default, chosen at smoke width) is what makes
+    # a fresh full-width model's loss jump in the first steps
+    low = train_launcher.main(["--steps", str(TRAIN_STEPS), "--lr",
+                               str(TRAIN_LOW_LR)])
+    if not all(math.isfinite(x) for x in low["losses"]) or \
+            any(launch_counts().values()):
+        raise AssertionError(f"train phase: lr {TRAIN_LOW_LR} losses "
+                             f"{low['losses']}, launches {launch_counts()}")
+    log(f"train phase: lr {TRAIN_LOW_LR}: " + ", ".join(
+        f"step {i} loss {x:.4f}" for i, x in enumerate(low["losses"])))
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = {}
+    for i, arch in enumerate(TRAIN_FAMILIES):
+        families[arch] = r = train_step_pair(arch, dev, seed + i)
+        log(f"train phase: {arch} smoke float32 step, loss {r['loss']:.6f} "
+            f"(CPU {r['loss_cpu']:.6f}), grad_norm {r['grad_norm']:.6f} "
+            f"(CPU {r['grad_norm_cpu']:.6f}), parameters worst "
+            f"{r['worst_of_bound']:.3f} of the bound, "
+            f"{r['beyond_tenth_lr']} of {r['params']} beyond 0.1 lr")
+    ckpt = checkpoint_round_trip(dev, seed)
+    log(f"train phase: checkpoint round trip of {ckpt['leaves']} leaves "
+        f"({ckpt['bytes']} bytes) bit for bit")
+    return dict(**phase_end("train phase", t_phase), full=full,
+                low_lr=low, families=families, checkpoint=ckpt)
+
+
 def attention_row(label: str, dev, gen, b: int, s: int, skv: int, widths,
                   *, causal=True, window=None, contiguous=False):
     """``prefill_attention`` as ``Model.prefill`` dispatches it (one launch
@@ -3711,6 +3923,7 @@ def main() -> int:
     moe = moe_phases(dev, seed=9)
     dense = dense_phases(dev, seed=10)
     mla = mla_phases(dev, seed=11)
+    train = train_phase(dev, seed=15)
     cluster = dense["cluster"]
     host_tiers = [slice1["host_tier"], dense["host_tier"]]
     sim = dense["sim"]
@@ -3827,6 +4040,13 @@ def main() -> int:
         f"{internvl['decode_tokens_per_s']:.1f} tokens/s, "
         f"max_memory_allocated {internvl['measure_peak_gib']:.2f} GiB; "
         f"{internvl['seconds']:.1f} s")
+    full = train["full"]
+    log(f"train phase on {card}: {full['arch']} whole, step "
+        f"{full['step_median_s'] * 1e3:.1f} ms, {full['tokens_per_s']:.0f} "
+        f"tokens/s, max_memory_allocated {full['peak_gib']:.2f} GiB, loss "
+        f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}; "
+        f"{len(train['families'])} smoke families on the card equal to the "
+        f"CPU; {train['seconds']:.1f} s")
     log_timings(card, [(paged, paged_shapes), (flash, flash_shapes),
                        (ssd, ssd_shapes)])
     for arch, timed in gqa_timed.items():
@@ -3835,7 +4055,7 @@ def main() -> int:
     log("detail " + json.dumps(dict(
         card=card, serve=serve, oracle=oracle, slice1=slice1, mamba=mamba,
         hymba=hymba, seamless=seamless, internvl2=internvl, moe=moe,
-        dense=dense, mla=mla, kernel_cases=cases,
+        dense=dense, mla=mla, train=train, kernel_cases=cases,
         timing=dict(paged_attention=paged_shapes,
                     flash_prefill=flash_shapes, ssd_scan=ssd_shapes,
                     gqa={arch: dict(paged_attention=dict(t[0][0], **t[0][1]),

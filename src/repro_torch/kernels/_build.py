@@ -94,6 +94,19 @@ def _raw_stream(device: int) -> int:
     return _RAW_STREAM[0](device)
 
 
+def refuse_grad(fn: str, *tensors) -> None:
+    """Raise if autograd would record a call of kernel wrapper ``fn``. A
+    kernel writes into outputs that carry no graph, so a gradient through
+    it would be silently dropped; the check is the same on every device,
+    so the CPU's differentiable plain versions cannot hide a training path
+    that reaches a wrapper. Training runs the plain ops of
+    ``repro_torch.models`` (``blockwise_attention``, ``ssd_chunked``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{fn}: the kernel has no backward; call it "
+                           "under torch.no_grad() or with inputs that do "
+                           "not require grad")
+
+
 def call(fn, device: int, *args) -> int:
     """Call the C entry point ``fn`` with ``args`` and then the current
     stream of CUDA device ``device``, with that device current (a kernel

@@ -20,7 +20,9 @@ a decoder's cross-attention over the encoder's positions.
 
 Each dispatches by the device of its tensors. CPU tensors take the plain
 version (``kernels.ref``); CUDA tensors launch the kernel or raise: there
-is no fallback from one to the other. Each launch, through any entry
+is no fallback from one to the other. On every device each raises where
+autograd would record the call (``_build.refuse_grad``): the kernel has no
+backward. Each launch, through any entry
 point, adds one to ``flash_prefill.launches``.
 """
 
@@ -102,6 +104,7 @@ def flash_prefill(q, k, v, *, causal: bool = True,
     On CUDA: q contiguous; k and v any strided views with a unit head_dim
     stride; one dtype (float32 or bfloat16) for q, k, v and the output.
     """
+    _build.refuse_grad("flash_prefill", q, k, v)
     _same_device("flash_prefill", q, k=k, v=v)
     if window is not None and window < 1:
         raise ValueError(f"flash_prefill: window must be >= 1, got {window}")
@@ -138,6 +141,7 @@ def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
     int32 (n,) with ``q_offset + S <= n * ps``, every entry a page of the
     pool. Keys are read only at positions ``< q_offset + S``.
     """
+    _build.refuse_grad("prefill_attention_paged", q, k_pool, v_pool)
     _same_device("prefill_attention_paged", q, k_pool=k_pool, v_pool=v_pool,
                  page_ids=page_ids)
     if window is not None and window < 1:
@@ -200,6 +204,7 @@ def prefill_attention(q, k, v, *, window: Optional[int] = None,
     form with k and v as a pool of B pages of Skv tokens and page ids
     ``[b]``: B launches, no copy of K/V.
     """
+    _build.refuse_grad("prefill_attention", q, k, v)
     _same_device("prefill_attention", q, k=k, v=v)
     if window is not None and window < 1:
         raise ValueError(f"prefill_attention: window must be >= 1, got "

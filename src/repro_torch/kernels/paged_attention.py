@@ -7,7 +7,8 @@ block each, and merges the runs' partials on the card; the wrapper
 allocates their scratch. It dispatches by the device of its tensors. CPU
 tensors take the plain version (``kernels.ref.paged_attention``); CUDA
 tensors launch the kernel or raise: there is no fallback from one to the
-other. Each call that launches adds one to ``paged_attention.launches``,
+other. On every device it raises where autograd would record the call
+(``_build.refuse_grad``): the kernel has no backward. Each call that launches adds one to ``paged_attention.launches``,
 and one that also returns the partials ``(m, l)`` (the zero-copy decode's
 calls) to ``paged_attention.partial_launches`` too.
 """
@@ -102,6 +103,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     is read in place). Every block-table entry below ``ceil(ctx / ps)``
     must be a valid page of the pool; the kernel reads no other entry.
     """
+    _build.refuse_grad("paged_attention", q, k_pages, v_pages)
     _check_devices(q, k_pages, v_pages, block_tables, context_lens)
     if window is not None and window < 1:
         raise ValueError(f"paged_attention: window must be >= 1, got "

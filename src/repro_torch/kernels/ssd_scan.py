@@ -3,8 +3,10 @@
 
 The wrapper dispatches by the device of its tensors. CPU tensors take the
 plain version (``kernels.ref.ssd_scan``); CUDA tensors launch the kernel or
-raise: there is no fallback from one to the other. Each launch adds one to
-``ssd_scan.launches``.
+raise: there is no fallback from one to the other. On every device it
+raises where autograd would record the call (``_build.refuse_grad``): the
+kernel has no backward, and training takes ``repro_torch.models.ssm.
+ssd_chunked`` instead. Each launch adds one to ``ssd_scan.launches``.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
     views with dense trailing (heads, dim) axes (a slice of the conv
     output is read in place); p <= 64 and n <= 128.
     """
+    _build.refuse_grad("ssd_scan", x, dt, A, B, C)
     b, l, h, p = x.shape
     n = B.shape[3]
     if chunk < 1 or l % chunk:

@@ -151,3 +151,16 @@ def unembed(p, x, vocab: int, fp32: bool = False):
     if v_pad != vocab:
         logits[..., vocab:] = torch.finfo(logits.dtype).min
     return logits
+
+
+def cross_entropy(logits, labels, vocab: int):
+    """Mean token loss in float32 (``layers.py:171-186``); labels below 0
+    are masked out and the mean is over the valid ones. The padded vocab
+    entries are masked already (``unembed``), so ``vocab`` is not read
+    here; it is kept for the reference's signature."""
+    logits = logits.float()
+    valid = labels >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    loss = (lse - gold) * valid
+    return loss.sum() / valid.sum().clamp_min(1)

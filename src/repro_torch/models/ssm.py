@@ -1,9 +1,12 @@
 """Mamba2 block via SSD (state-space duality) [arXiv:2405.21060], one for
 one with ``repro.models.ssm``.
 
-The full-sequence block runs the chunked SSD scan through
+The full-sequence block takes its chunked SSD scan as an argument. The
+serving paths (``Model.prefill``, ``Model.forward``) run
 :func:`repro_torch.kernels.ssd_scan.ssd_scan`, which launches the CUDA
-kernel for CUDA tensors and runs its plain version for CPU tensors.
+kernel for CUDA tensors and runs its plain version for CPU tensors; the
+training loss runs :func:`ssd_chunked`, the reference's differentiable
+scan in plain tensor ops (the kernel has no backward).
 Decode is the O(1) recurrent update of a ``(B, H, P, N)`` float32 state
 plus a rolling depthwise-conv window, in plain PyTorch (the reference has
 no kernel there).
@@ -79,9 +82,66 @@ def _gated_norm(cfg, p, y, z, dtype):
     return yf.to(dtype) * p["norm_scale"]
 
 
-def ssm_forward(cfg, p, x, *, return_cache: bool = False):
+def _segsum(a):
+    """a: (..., L) -> (..., L, L): out[i, j] = sum(a[j+1..i]) for j <= i,
+    -inf above the diagonal (``ssm.py:60-67``)."""
+    L = a.shape[-1]
+    cum = torch.cumsum(a, dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.ones(L, L, dtype=torch.bool, device=a.device).tril()
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x, dt, A, B, C, *, chunk: int):
+    """The reference's training scan (``repro.models.ssm.ssd_chunked``,
+    ``ssm.py:70-122``), differentiable, in plain tensor ops: the
+    intra-chunk scores, each chunk's outgoing state, the inter-chunk
+    recurrence and the inter-chunk output ``y_off``. x: (b, l, h, p); dt:
+    (b, l, h) float32 after softplus; A: (h,) negative; B, C: (b, l, g,
+    n). Returns y (b, l, h, p) and the final state (b, h, p, n), float32.
+    The recurrence runs as a loop over chunks where the reference runs an
+    associative scan: the same products, summed in another order."""
+    b, l, h, pdim = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if chunk < 1 or l % chunk:
+        raise ValueError(f"ssd_chunked: sequence {l} is not a multiple of "
+                         f"chunk {chunk}")
+    nc, rep = l // chunk, h // g
+    xc = (x.float() * dt[..., None]).reshape(b, nc, chunk, h, pdim)
+    ac = (dt * A).float().reshape(b, nc, chunk, h)
+    Bh = B.float().reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    Ch = C.float().reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    a_cum = torch.cumsum(ac, dim=2)  # (b, nc, chunk, h)
+
+    # 1) intra-chunk, quadratic within a chunk
+    lmat = torch.exp(_segsum(ac.transpose(2, 3)))  # (b, nc, h, chunk, chunk)
+    scores = torch.einsum("bzihn,bzjhn->bzhij", Ch, Bh) * lmat
+    y_diag = torch.einsum("bzhij,bzjhp->bzihp", scores, xc)
+
+    # 2) each chunk's outgoing state
+    decay_out = torch.exp(a_cum[:, :, -1:, :] - a_cum)
+    states = torch.einsum("bzlh,bzlhn,bzlhp->bzhpn", decay_out, Bh, xc)
+
+    # 3) the state entering each chunk: S_z = S_{z-1} exp(sum a_z) + states_z
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])  # (b, nc, h)
+    state = torch.zeros_like(states[:, 0])
+    st_in = []
+    for z in range(nc):
+        st_in.append(state)
+        state = state * chunk_decay[:, z, :, None, None] + states[:, z]
+    st_in = torch.stack(st_in, dim=1)  # (b, nc, h, p, n)
+
+    # 4) the inter-chunk output: C_i decay(i) S_in
+    y_off = torch.einsum("bzlhn,bzlh,bzhpn->bzlhp", Ch, torch.exp(a_cum),
+                         st_in)
+    return (y_diag + y_off).reshape(b, l, h, pdim), state
+
+
+def ssm_forward(cfg, p, x, *, return_cache: bool = False, scan=ssd_scan):
     """Full-sequence Mamba2 block. x: (B, S, D) -> (B, S, D); with
-    ``return_cache`` also the decode cache after the last position."""
+    ``return_cache`` also the decode cache after the last position.
+    ``scan(x, dt, A, B, C, chunk=)`` is the chunked SSD scan: the kernel's
+    wrapper by default, :func:`ssd_chunked` on the training path."""
     b, s, _ = x.shape
     h, pdim, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_groups
@@ -95,8 +155,8 @@ def ssm_forward(cfg, p, x, *, return_cache: bool = False):
     dtv = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
-    y, final_state = ssd_scan(xin, dtv, A, bmat, cmat,
-                              chunk=min(cfg.ssm_chunk, s))
+    y, final_state = scan(xin, dtv, A, bmat, cmat,
+                          chunk=min(cfg.ssm_chunk, s))
     y = y + xin.float() * p["D"][:, None]
     y = y.reshape(b, s, din).to(x.dtype)
     out = dense(p["out_proj"], _gated_norm(cfg, p, y, z, x.dtype))

@@ -17,11 +17,21 @@ for an audio one (seamless); the token ids under them are ignored.
 A model is a sequence of **segments**: runs of identical layers whose
 parameters are stacked along a leading layer axis, exactly as the
 reference stores them (``transformer.py:319``). The reference scans over
-that axis; here a Python loop indexes it. ``Model.forward`` is the
+that axis; here a Python loop runs over the layers, each stacked leaf
+unbound once per segment (:func:`unstack_layers`). ``Model.forward`` is the
 teacher-forced oracle of the engine tests and of ``chip_smoke.py``, in
-plain PyTorch attention; an MLA layer there decompresses the latent and
-runs standard attention (``mla_forward``), where the engine attends over
-the latent.
+plain PyTorch attention, under ``no_grad``; an MLA layer there decompresses
+the latent and runs standard attention (``mla_forward``), where the engine
+attends over the latent.
+
+``Model.loss`` is the training loss (``transformer.py:387-393``): the
+forward's body with gradients, the plain ``blockwise_attention`` and the
+differentiable ``ssm.ssd_chunked`` (no kernel: the kernels have no
+backward, and their wrappers refuse a call that autograd would record),
+each layer returning its MoE aux loss. ``Model(cfg, remat=True)`` runs
+each layer under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of the layer scan), recomputing its activations in the
+backward.
 
 ``Model.prefill`` / ``Model.decode_step`` serve every plan from per-segment
 decode caches, as the reference's do (``transformer.py:396-525``): a GQA
@@ -47,13 +57,16 @@ import dataclasses
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_prefill import prefill_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import embed, mlp, rms_norm, unembed
+from repro_torch.models.layers import cross_entropy, embed, mlp, rms_norm, \
+    unembed
 from repro_torch.models.moe import moe_forward
 
 
@@ -114,6 +127,20 @@ def layer_params(p_seg, i: int):
     return p_seg[i]
 
 
+def unstack_layers(p_seg, n: int):
+    """The ``n`` layers' parameters of a segment (views, no copy); a
+    one-layer segment is stored without the stacked axis. Each leaf is
+    unbound once: the backward of an unbind is one stack, where indexing
+    each layer would zero-fill and add a gradient of the whole stack per
+    layer (O(n^2) bytes)."""
+    if n == 1:
+        return [p_seg]
+    if isinstance(p_seg, dict):
+        parts = {k: unstack_layers(v, n) for k, v in p_seg.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(p_seg))
+
+
 def seg_window(cfg: ArchConfig, seg: Segment):
     return cfg.sliding_window if seg.attn_kind == "swa" else None
 
@@ -136,15 +163,17 @@ def _mlp_residual(cfg, seg: Segment, p, x, mlp_fn):
 
 def _layer_forward(cfg, seg: Segment, p, x, positions, *, attention,
                    mlp_fn=None, collect: bool = False, causal: bool = True,
-                   enc_out=None):
+                   enc_out=None, scan=ssd_scan):
     """One full-sequence layer (``transformer.py:109-177``).
     ``attention(q, k, v, window, causal) -> ctx`` is the attention of GQA,
-    hybrid and cross layers; ``causal=False`` in the encoder. A cross
-    segment attends over ``enc_out`` (B, S_enc, D) after its
-    self-attention. Returns (x, seed): with ``collect`` the seed of the
-    decode cache (gqa: (k, v); mla: (ckv, krope); ssm: SSMCache; hybrid:
-    ((k, v), SSMCache); a cross segment: (that seed, (ck, cv))), else
-    None."""
+    hybrid and cross layers; ``causal=False`` in the encoder; ``scan`` the
+    SSM heads' chunked scan. A cross segment attends over ``enc_out`` (B,
+    S_enc, D) after its self-attention. ``mlp_fn`` replaces the layer's
+    MLP. Returns (x, aux, seed): the MoE load-balance loss of the layer
+    (float32; zero but in a MoE layer run without ``mlp_fn``), and with
+    ``collect`` the seed of the decode cache (gqa: (k, v); mla: (ckv,
+    krope); ssm: SSMCache; hybrid: ((k, v), SSMCache); a cross segment:
+    (that seed, (ck, cv))), else None."""
     window = seg_window(cfg, seg)
 
     def attend(q, k, v):
@@ -165,14 +194,16 @@ def _layer_forward(cfg, seg: Segment, p, x, positions, *, attention,
             out, seed = out
         x = x + out
     elif seg.mixer == "ssm":
-        out = ssm_mod.ssm_forward(cfg, p["ssm"], h, return_cache=collect)
+        out = ssm_mod.ssm_forward(cfg, p["ssm"], h, return_cache=collect,
+                                  scan=scan)
         if collect:
             out, seed = out
         x = x + out
     else:  # hybrid: parallel heads, averaged fusion
         a = attn.gqa_forward(cfg, p["attn"], h, positions,
                              return_kv=collect, attend=attend)
-        m = ssm_mod.ssm_forward(cfg, p["ssm"], h, return_cache=collect)
+        m = ssm_mod.ssm_forward(cfg, p["ssm"], h, return_cache=collect,
+                                scan=scan)
         if collect:
             (a, kv), (m, sc) = a, m
             seed = (kv, sc)
@@ -185,7 +216,12 @@ def _layer_forward(cfg, seg: Segment, p, x, positions, *, attention,
             attend=lambda q, k, v: attention(q, k, v, None, False))
         if collect:
             seed = (seed, ckv)
-    return _mlp_residual(cfg, seg, p, x, mlp_fn), seed
+    if seg.mlp_kind == "moe" and mlp_fn is None:
+        h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+        out, aux = moe_forward(cfg, p["mlp"], h2, return_aux=True)
+        return x + out, aux, seed
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _mlp_residual(cfg, seg, p, x, mlp_fn), aux, seed
 
 
 def mla_forward_layer(cfg, p, x, positions, mlp_fn=None):
@@ -326,10 +362,13 @@ class Model:
     encoder-decoder model's encoder under ``params["encoder"]``
     (``{"segments", "final_norm"}``)."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, remat: bool = False):
+        """``remat``: :meth:`loss` recomputes each layer's activations in
+        the backward (``transformer.py:281-289, 347``)."""
         self.cfg = cfg
         self.plan = stack_plan(cfg)
         self.enc_plan = encoder_plan(cfg) if cfg.is_encdec else []
+        self.remat = remat
 
     def layers(self, params):
         """Yield ``(seg, layer_index, layer_params)`` over the decoder."""
@@ -347,34 +386,34 @@ class Model:
                        fp32=cfg.logits_fp32)
 
     def _run_stack(self, plan, seg_params, x, *, attention, collect: bool,
-                   causal: bool = True, enc_out=None):
-        """Run every layer of ``plan`` on the embedded ``x``. Returns (x,
-        aux summed over the MoE layers, one seed per segment stacked along
-        its layer axis)."""
+                   causal: bool = True, enc_out=None, scan=ssd_scan,
+                   remat: bool = False):
+        """Run every layer of ``plan`` on the embedded ``x``, each under
+        ``checkpoint`` with ``remat``. Returns (x, aux summed over the MoE
+        layers in layer order, one seed per segment stacked along its layer
+        axis)."""
         cfg = self.cfg
         positions = torch.arange(x.shape[1], device=x.device)
-        aux = [torch.zeros((), device=x.device)]
-
-        def moe_fn(pm, h):
-            out, layer_aux = moe_forward(cfg, pm, h, return_aux=True)
-            aux[0] = aux[0] + layer_aux
-            return out
-
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         seeds = []
         for seg, p_seg in zip(plan, seg_params):
-            mlp_fn = moe_fn if seg.mlp_kind == "moe" else None
+            def layer(p, x, seg=seg):
+                return _layer_forward(cfg, seg, p, x, positions,
+                                      attention=attention, collect=collect,
+                                      causal=causal, enc_out=enc_out,
+                                      scan=scan)
+
             per_layer = []
-            for j in range(seg.n):
-                p = p_seg if seg.n == 1 else layer_params(p_seg, j)
-                x, seed = _layer_forward(cfg, seg, p, x, positions,
-                                         attention=attention, mlp_fn=mlp_fn,
-                                         collect=collect, causal=causal,
-                                         enc_out=enc_out)
+            for p in unstack_layers(p_seg, seg.n):
+                x, layer_aux, seed = checkpoint(
+                    layer, p, x, use_reentrant=False) if remat \
+                    else layer(p, x)
+                aux = aux + layer_aux
                 per_layer.append(seed)
             if collect:
                 seeds.append(per_layer[0] if seg.n == 1
                              else _tree_stack(per_layer))
-        return x, aux[0], seeds
+        return x, aux, seeds
 
     def _embed_with_media(self, params, tokens, media):
         """Embedded tokens whose first ``media.shape[1]`` positions are the
@@ -386,7 +425,7 @@ class Model:
         return x
 
     def encode(self, params, encoder_tokens, media=None, *,
-               attention=_plain_attention):
+               attention=_plain_attention, remat: bool = False):
         """The encoder's output (B, S_enc, D): embedded tokens (and media),
         non-causal self-attention layers, the encoder's final norm
         (``transformer.py:360-365``)."""
@@ -394,12 +433,12 @@ class Model:
         x, _, _ = self._run_stack(self.enc_plan,
                                   params["encoder"]["segments"], x,
                                   attention=attention, collect=False,
-                                  causal=False)
+                                  causal=False, remat=remat)
         return rms_norm(params["encoder"]["final_norm"], x,
                         self.cfg.norm_eps)
 
     def _decoder_input(self, params, tokens, media, encoder_tokens,
-                       attention):
+                       attention, remat: bool = False):
         """(embedded decoder input, encoder output or None): media go to
         the encoder of an audio model and to the decoder otherwise
         (``transformer.py:372-378``)."""
@@ -408,9 +447,21 @@ class Model:
             audio = self.cfg.frontend == "audio"
             enc_out = self.encode(params, encoder_tokens,
                                   media if audio else None,
-                                  attention=attention)
+                                  attention=attention, remat=remat)
             media = None if audio else media
         return self._embed_with_media(params, tokens, media), enc_out
+
+    def _forward(self, params, tokens, media, encoder_tokens, *, scan,
+                 remat: bool):
+        """The body of :meth:`forward` and :meth:`loss`: logits and aux."""
+        x, enc_out = self._decoder_input(params, tokens, media,
+                                         encoder_tokens, _plain_attention,
+                                         remat)
+        x, aux, _ = self._run_stack(self.plan, params["segments"], x,
+                                    attention=_plain_attention,
+                                    collect=False, enc_out=enc_out,
+                                    scan=scan, remat=remat)
+        return self._logits(params, x), aux
 
     @torch.no_grad()
     def forward(self, params, tokens, *, media=None, encoder_tokens=None):
@@ -419,13 +470,24 @@ class Model:
         them (``transformer.py:368-385``). ``media``: (B, M, D) embeddings
         in place of the first M positions; ``encoder_tokens``: (B, S_enc)
         the encoder's input of an encoder-decoder model. Attention is the
-        plain ``blockwise_attention`` on any device."""
-        x, enc_out = self._decoder_input(params, tokens, media,
-                                         encoder_tokens, _plain_attention)
-        x, aux, _ = self._run_stack(self.plan, params["segments"], x,
-                                    attention=_plain_attention,
-                                    collect=False, enc_out=enc_out)
-        return self._logits(params, x), aux
+        plain ``blockwise_attention`` on any device; the SSM heads take the
+        ``ssd_scan`` kernel on CUDA."""
+        return self._forward(params, tokens, media, encoder_tokens,
+                             scan=ssd_scan, remat=False)
+
+    def loss(self, params, batch):
+        """The training loss (``transformer.py:387-393``): mean next-token
+        cross-entropy of ``batch["tokens"]`` against ``batch["labels"]``
+        shifted by one, plus 0.01 x the MoE aux loss. ``batch`` may carry
+        ``media`` and ``encoder_tokens`` as :meth:`forward` takes them. No
+        kernel runs: plain attention and :func:`ssm.ssd_chunked`."""
+        logits, aux = self._forward(
+            params, batch["tokens"], batch.get("media"),
+            batch.get("encoder_tokens"), scan=ssm_mod.ssd_chunked,
+            remat=self.remat)
+        ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                           self.cfg.vocab_size)
+        return ce + 0.01 * aux
 
     def init_cache(self, batch: int, seq_len: int, *, device="cuda",
                    enc_len: int = 0):

@@ -1261,3 +1261,67 @@ def test_cuda_swap_engine_matches_cpu_engine(cuda, mode):
             top = torch.topk(last, 2).values
             assert top[0] - top[1] < 2.0 ** -7 * last.abs().max(), (i, x, y)
             break
+
+
+# a train step on the card against the CPU's, from the same float32
+# weights: the loss as tests/test_torch_train_grads.py holds it (2e-5), the
+# gradient norm and the parameters as tests/test_torch_training.py holds a
+# float32 step (1e-3; within 2 lr (1 + wd |p|) everywhere, beyond 0.1 lr on
+# at most 1%)
+TRAIN_FAMILIES = ["h2o-danube-1.8b", "llama4-scout-17b-a16e",
+                  "deepseek-v2-236b", "mamba2-1.3b", "hymba-1.5b",
+                  "seamless-m4t-medium", "internvl2-26b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_cuda_train_step_matches_cpu_and_launches_no_kernel(cuda, arch):
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import optimizer
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.tree import leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
+                              logits_fp32=True)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.num_media_tokens:
+        batch["media"] = (rng.standard_normal(
+            (2, cfg.num_media_tokens, cfg.d_model)) * 0.02) \
+            .astype(np.float32)
+    if cfg.is_encdec:
+        batch["encoder_tokens"] = rng.integers(
+            0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    ocfg = optimizer.OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    step = make_train_step(Model(cfg), ocfg)
+    cpu = init_params(cfg, seed=1, device="cpu")
+    gpu = tree_map(lambda t: t.to(cuda, copy=True), cpu)
+    counts = (flash_prefill.launches, paged_attention.launches,
+              ssd_scan.launches)
+    gpu, _, gm = step(gpu, optimizer.init(gpu),
+                      {k: torch.from_numpy(v).to(cuda)
+                       for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert (flash_prefill.launches, paged_attention.launches,
+            ssd_scan.launches) == counts
+    cpu, _, cm = step(cpu, optimizer.init(cpu),
+                      {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(gm["loss"]), float(cm["loss"]),
+                               rtol=2e-5)
+    np.testing.assert_allclose(float(gm["grad_norm"]),
+                               float(cm["grad_norm"]), rtol=1e-3)
+    lr = float(cm["lr"])
+    far = total = 0
+    for g, c in zip(leaves(gpu), leaves(cpu)):
+        d = (g.cpu() - c).abs()
+        assert (d <= 2 * lr * (1 + ocfg.weight_decay * c.abs()) * (1 + 2e-4)
+                + 1e-7).all()
+        far += int((d > 0.1 * lr).sum())
+        total += d.numel()
+    assert far <= 0.01 * total, (far, total)
