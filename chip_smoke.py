@@ -189,7 +189,26 @@ or the JAX package) and:
    ``ssd_chunked``: the kernels have no backward). Then a smoke-width
    ``{"params", "opt"}`` checkpoint saved and restored bit for bit in a
    temporary directory under ``build/``, removed after;
-12. times each kernel at its path's shapes beside its plain version, one
+12. mesh phase (sharding, the dry-run and the roofline): the train
+   launcher's ``main`` at its defaults again, now SPMD on a one-rank NCCL
+   group through ``make_host_mesh(1)``, ``MeshPolicy`` and DTensor
+   parameters and batches, for 10 steps: every loss finite, step 0's loss
+   and grad_norm within 1e-4 relative of the train phase's plain run from
+   the same seed (``repro_torch.launch.train.run`` without a mesh), each
+   step's loss printed beside the plain one, the median step time (the
+   DTensor dispatch's cost is its difference from the plain run's),
+   tokens/s and max_memory_allocated; no kernel launches. Then
+   ``dist_attention`` on the one-rank mesh against ``dist_attention_ref``
+   at a long decode (B 4, S 32768, H 32 over Hkv 8, Dh 128, bf16, 0.54 GB
+   of K/V). Then the dry-run in three child processes at once on the CPU
+   (each rank 0 of a fake process group of 256, no device, each segment
+   counted at 2 and 4 layers and extrapolated): h2o-danube-1.8b train_4k, llama4-scout-17b-a16e
+   train_4k (the ``local_map`` MoE) and h2o-danube-1.8b decode_32k (the
+   DistAttention layout) on 16 x 16, each record's per-rank FLOPs, bytes,
+   collective bytes by kind, the three roofline terms (the H100 data
+   sheet's, not measured), the bottleneck, ``useful_flop_frac`` and
+   memory per rank printed;
+13. times each kernel at its path's shapes beside its plain version, one
    PyTorch library call computing the same function where there is one,
    and the least time the card could take (its bound), and prints them as
    one JSON line; ``flash_prefill``'s engine form is also timed at each of
@@ -227,6 +246,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3330,10 +3350,14 @@ def train_phase(dev, seed: int) -> dict:
     ``ssd_chunked`` (the kernels have no backward)."""
     from repro_torch.launch import train as train_launcher
 
+    def plain(flags):  # the launcher's loop without a mesh
+        return train_launcher.run(train_launcher.build_parser().parse_args(
+            flags), dev=dev)
+
     t_phase = time.monotonic()
     torch.cuda.empty_cache()
     reset_launch_counts()
-    full = train_launcher.main(["--steps", str(TRAIN_STEPS)])
+    full = plain(["--steps", str(TRAIN_STEPS)])
     launches = launch_counts()
     losses = full["losses"]
     log("train phase: " + ", ".join(
@@ -3356,8 +3380,7 @@ def train_phase(dev, seed: int) -> dict:
     # the same run at a lower peak learning rate: whether the launcher's
     # 1e-3 (the reference's default, chosen at smoke width) is what makes
     # a fresh full-width model's loss jump in the first steps
-    low = train_launcher.main(["--steps", str(TRAIN_STEPS), "--lr",
-                               str(TRAIN_LOW_LR)])
+    low = plain(["--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LOW_LR)])
     if not all(math.isfinite(x) for x in low["losses"]) or \
             any(launch_counts().values()):
         raise AssertionError(f"train phase: lr {TRAIN_LOW_LR} losses "
@@ -3379,6 +3402,147 @@ def train_phase(dev, seed: int) -> dict:
         f"({ckpt['bytes']} bytes) bit for bit")
     return dict(**phase_end("train phase", t_phase), full=full,
                 low_lr=low, families=families, checkpoint=ckpt)
+
+
+# -- the mesh: sharding, DistAttention, the dry-run ---------------------------
+
+MESH_LOSS_RTOL = 1e-4  # step 0 against the plain run (one rank: no sum
+# is split, so only DTensor's own op choices differ)
+DIST_SHAPE = dict(b=4, s=32768, h=32, hkv=8, dh=128)
+DIST_TOL = 1e-4  # bf16 q, K, V; float32 partials against the float32
+# oracle on the same values: they differ only in the order of the sums
+DRYRUN = (("h2o-danube-1.8b", "train_4k"),
+          ("llama4-scout-17b-a16e", "train_4k"),
+          ("h2o-danube-1.8b", "decode_32k"))
+DRYRUN_CAP = 2  # count 2 and 4 layers a segment, extrapolate, as the
+# reference does
+
+
+def mesh_phase(dev, seed: int, plain: dict) -> dict:
+    """The train launcher SPMD on a one-rank NCCL mesh against the train
+    phase's plain run ``plain``; ``dist_attention`` on that mesh at a long
+    decode; the dry-run's three records. No kernel may launch."""
+    import torch.distributed as dist
+    from repro_torch.core.distkv.dist_attention import (dist_attention,
+                                                        dist_attention_ref)
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    run = train_launcher.main(["--steps", str(TRAIN_STEPS)])
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"mesh phase: the launcher launched kernels "
+                             f"{launches}")
+    losses, want = run["losses"], plain["losses"]
+    log("mesh phase: " + ", ".join(
+        f"step {i} loss {x:.4f} (plain {y:.4f})"
+        for i, (x, y) in enumerate(zip(losses, want))))
+    if not all(math.isfinite(x) for x in losses + run["grad_norms"]):
+        raise AssertionError(f"mesh phase: losses {losses}")
+    for k in ("losses", "grad_norms"):
+        got, ref = run[k][0], plain[k][0]
+        if abs(got - ref) > MESH_LOSS_RTOL * abs(ref):
+            raise AssertionError(f"mesh phase: step 0 {k} {got!r} on the "
+                                 f"mesh, {ref!r} without")
+    dispatch = run["step_median_s"] - plain["step_median_s"]
+    log(f"mesh phase: {run['arch']} whole on mesh {run['mesh']}, step "
+        f"{run['step_median_s'] * 1e3:.1f} ms (plain "
+        f"{plain['step_median_s'] * 1e3:.1f} ms: DTensor dispatch "
+        f"{dispatch * 1e3:.1f} ms a step), {run['tokens_per_s']:.0f} "
+        f"tokens/s, max_memory_allocated {run['peak_gib']:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # DistAttention on the one-rank mesh, a long decode
+    init_distributed(dev)
+    try:
+        mesh = make_host_mesh(1, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        sh = DIST_SHAPE
+        q = torch.randn(sh["b"], sh["h"], sh["dh"], generator=gen,
+                        device=dev).to(torch.bfloat16)
+        k = torch.randn(sh["b"], sh["s"], sh["hkv"], sh["dh"], generator=gen,
+                        device=dev).to(torch.bfloat16)
+        v = torch.randn(sh["b"], sh["s"], sh["hkv"], sh["dh"], generator=gen,
+                        device=dev).to(torch.bfloat16)
+        lens = torch.tensor([sh["s"], 17, sh["s"] // 2 + 3, sh["s"] - 1],
+                            dtype=torch.int32, device=dev)
+        want_o = dist_attention_ref(q, k, v, lens)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got_o = dist_attention(mesh, q, k, v, lens).to_local()
+        torch.cuda.synchronize()
+        da_ms = (time.monotonic() - t0) * 1e3
+        err = float((got_o - want_o).abs().max())
+        if not math.isfinite(err) or err > DIST_TOL:
+            raise AssertionError(f"mesh phase: dist_attention max error "
+                                 f"{err} > {DIST_TOL}")
+        kv_gb = 2 * k.numel() * k.element_size() / 1e9
+        log(f"mesh phase: dist_attention B {sh['b']} S {sh['s']} H "
+            f"{sh['h']}/{sh['hkv']} Dh {sh['dh']} bf16 ({kv_gb:.2f} GB of "
+            f"K/V) on the one-rank mesh: max error {err:.2e} against "
+            f"dist_attention_ref, {da_ms:.1f} ms (one call, host clock)")
+    finally:
+        dist.destroy_process_group()
+    del q, k, v, want_o, got_o
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(launch_counts().values()):
+        raise AssertionError(f"mesh phase: kernels launched "
+                             f"{launch_counts()}")
+
+    # the dry-run: one child process a record, on the CPU, each rank 0 of
+    # a fake group of 256 ranks, all three at once
+    out_dir = Path(__file__).resolve().parent / "build" / "torch_dryrun"
+    src = str(Path(__file__).resolve().parent / "src")
+    t0 = time.monotonic()
+    children = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--cap", str(DRYRUN_CAP), "--out", str(out_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES=""))
+        for arch, shape in DRYRUN]
+    for child in children:
+        stdout, stderr = child.communicate(timeout=600)
+        if child.returncode != 0:
+            raise AssertionError(f"mesh phase: the dry-run failed\n"
+                                 f"{stdout[-2000:]}{stderr[-3000:]}")
+    dry_s = time.monotonic() - t0
+    records = {}
+    for arch, shape in DRYRUN:
+        rec = json.loads((out_dir / f"{arch}_{shape}_16x16.json")
+                         .read_text())
+        roof = rec.get("roofline") or {}
+        need = ("flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device", "collective_breakdown",
+                "t_compute_s", "t_memory_s", "t_collective_s", "bottleneck")
+        if rec.get("status") != "ok" or any(k not in roof for k in need) \
+                or not roof["flops_per_device"] > 0:
+            raise AssertionError(f"mesh phase: dry-run record {arch} "
+                                 f"{shape} incomplete: {rec}")
+        records[f"{arch} {shape}"] = rec
+        coll = {k: v for k, v in roof["collective_breakdown"].items() if v}
+        log(f"mesh phase: dry-run {arch} {shape} on 16x16 (H100 data-sheet "
+            f"terms, counted in {rec['count_s']:.1f} s at "
+            f"{rec['layers_counted']} layers): per rank "
+            f"{roof['flops_per_device']:.4g} FLOPs, "
+            f"{roof['bytes_per_device']:.4g} bytes, collectives "
+            f"{roof['collective_bytes_per_device']:.4g} bytes {coll}; "
+            f"t_compute {roof['t_compute_s']:.4g} s, t_memory "
+            f"{roof['t_memory_s']:.4g} s, t_collective "
+            f"{roof['t_collective_s']:.4g} s -> {roof['bottleneck']}; "
+            f"useful_flop_frac {rec['useful_flop_frac']:.3f}; "
+            f"{rec['hbm_per_device_gib']:.2f} GiB a rank "
+            f"(fits 80 GB: {rec['fits_80gb']})")
+    log(f"mesh phase: dry-run children {dry_s:.1f} s")
+    return dict(**phase_end("mesh phase", t_phase), train=run,
+                dispatch_s=dispatch, dist_attention=dict(
+                    max_err=err, ms=da_ms, **DIST_SHAPE),
+                dryrun=records, dryrun_s=dry_s)
 
 
 def attention_row(label: str, dev, gen, b: int, s: int, skv: int, widths,
@@ -3924,6 +4088,7 @@ def main() -> int:
     dense = dense_phases(dev, seed=10)
     mla = mla_phases(dev, seed=11)
     train = train_phase(dev, seed=15)
+    mesh = mesh_phase(dev, seed=16, plain=train["full"])
     cluster = dense["cluster"]
     host_tiers = [slice1["host_tier"], dense["host_tier"]]
     sim = dense["sim"]
@@ -4047,6 +4212,14 @@ def main() -> int:
         f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}; "
         f"{len(train['families'])} smoke families on the card equal to the "
         f"CPU; {train['seconds']:.1f} s")
+    run = mesh["train"]
+    log(f"mesh phase on {card}: {run['arch']} whole on a one-rank mesh, "
+        f"step {run['step_median_s'] * 1e3:.1f} ms (DTensor dispatch "
+        f"{mesh['dispatch_s'] * 1e3:.1f} ms a step over the plain run), "
+        f"{run['tokens_per_s']:.0f} tokens/s, max_memory_allocated "
+        f"{run['peak_gib']:.2f} GiB; dist_attention max error "
+        f"{mesh['dist_attention']['max_err']:.2e}; dry-run "
+        f"{mesh['dryrun_s']:.1f} s; {mesh['seconds']:.1f} s")
     log_timings(card, [(paged, paged_shapes), (flash, flash_shapes),
                        (ssd, ssd_shapes)])
     for arch, timed in gqa_timed.items():
@@ -4055,7 +4228,7 @@ def main() -> int:
     log("detail " + json.dumps(dict(
         card=card, serve=serve, oracle=oracle, slice1=slice1, mamba=mamba,
         hymba=hymba, seamless=seamless, internvl2=internvl, moe=moe,
-        dense=dense, mla=mla, train=train, kernel_cases=cases,
+        dense=dense, mla=mla, train=train, mesh=mesh, kernel_cases=cases,
         timing=dict(paged_attention=paged_shapes,
                     flash_prefill=flash_shapes, ssd_scan=ssd_shapes,
                     gqa={arch: dict(paged_attention=dict(t[0][0], **t[0][1]),

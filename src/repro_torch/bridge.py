@@ -61,7 +61,8 @@ def to_numpy_tree(tree):
     return _map(tree, _leaf_to_numpy)
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
+def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", *,
+                plan=None, enc_plan=None):
     """The reference's parameter tree for ``cfg``, drawn on ``device`` from
     a ``torch.Generator`` seeded with ``seed``: dense weights normal *
     1/sqrt(d_in), the embedding normal * 0.02 over the 512-padded vocab,
@@ -74,13 +75,14 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     an encoder-decoder model also ``params["encoder"]`` (``{"segments",
     "final_norm"}``, its dense GQA layers) (``transformer.py:87-106,
     319-330``). Same shapes and distributions as ``Model.init``; not the
-    same numbers (JAX's generator differs)."""
+    same numbers (JAX's generator differs). ``plan`` / ``enc_plan``
+    replace the config's segment plans (the dry-run's capped depth)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dt = cfg.torch_dtype
     d = cfg.d_model
-    segments = _init_segments(cfg, stack_plan(cfg), gen, dt, dev)
+    segments = _init_segments(cfg, plan or stack_plan(cfg), gen, dt, dev)
     params = {
         "embed": embed_init(gen, cfg.vocab_size, d, dt, dev),
         "final_norm": norm_init(d, dt, dev, bias=cfg.use_bias),
@@ -88,7 +90,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     }
     if cfg.is_encdec:
         params["encoder"] = {
-            "segments": _init_segments(cfg, encoder_plan(cfg), gen, dt, dev),
+            "segments": _init_segments(cfg, enc_plan or encoder_plan(cfg),
+                                       gen, dt, dev),
             "final_norm": norm_init(d, dt, dev, bias=cfg.use_bias),
         }
     return params

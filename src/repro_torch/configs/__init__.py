@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -114,6 +114,138 @@ class ArchConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return TORCH_DTYPES[self.dtype]
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True where a 524k-token decode is sub-quadratic or of bounded
+        memory: an SSM, a hybrid (its attention is windowed), or a window
+        (``configs/__init__.py:116-123`` of the reference)."""
+        if self.family == "ssm" or self.is_hybrid:
+            return True
+        return self.sliding_window is not None
+
+    def n_params(self) -> int:
+        """Approximate total parameter count (the roofline's MODEL_FLOPS)."""
+        return _count(self, active_only=False)
+
+    def n_active_params(self) -> int:
+        """Parameters a token touches (MoE: the shared and top-k experts)."""
+        return _count(self, active_only=True)
+
+
+def _count(cfg: ArchConfig, active_only: bool) -> int:
+    """The reference's parameter accounting (``configs/__init__.py:
+    138-197``), term for term."""
+    d = cfg.d_model
+    total = cfg.vocab_size * d  # embedding
+    if not cfg.tie_embeddings:
+        total += cfg.vocab_size * d
+
+    def attn_params() -> int:
+        if cfg.attention == "mla":
+            qd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            p = d * cfg.kv_lora_rank + d * cfg.qk_rope_head_dim
+            if cfg.q_lora_rank:
+                p += d * cfg.q_lora_rank \
+                    + cfg.q_lora_rank * cfg.num_heads * qd
+            else:
+                p += d * cfg.num_heads * qd
+            p += cfg.kv_lora_rank * cfg.num_heads \
+                * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+            p += cfg.num_heads * cfg.v_head_dim * d  # o_proj
+            return p
+        if cfg.attention == "none":
+            return 0
+        q = d * cfg.num_heads * cfg.head_dim
+        kv = 2 * d * cfg.num_kv_heads * cfg.head_dim
+        o = cfg.num_heads * cfg.head_dim * d
+        return q + kv + o
+
+    def mlp_params(ff: int) -> int:
+        return (3 if cfg.gated_mlp else 2) * d * ff
+
+    def ssm_params() -> int:
+        din, h = cfg.ssm_d_inner, cfg.ssm_heads
+        g, n = cfg.ssm_groups, cfg.ssm_state
+        in_proj = d * (2 * din + 2 * g * n + h)
+        conv = cfg.ssm_conv_width * (din + 2 * g * n)
+        return in_proj + conv + din * d + 2 * h  # + A_log, D
+
+    per_layer = 0
+    for layer in range(cfg.num_layers):
+        p = 0
+        if cfg.family == "ssm":
+            p += ssm_params()
+        elif cfg.is_hybrid:
+            p += attn_params() + ssm_params()
+        else:
+            p += attn_params()
+        if cfg.is_moe and layer >= cfg.first_k_dense:
+            e = (cfg.num_shared_experts + cfg.moe_top_k) if active_only \
+                else (cfg.num_shared_experts + cfg.num_experts)
+            p += e * mlp_params(cfg.moe_d_ff)
+            p += d * cfg.num_experts  # router
+        elif cfg.d_ff:
+            p += mlp_params(cfg.d_ff)
+        per_layer += p
+    total += per_layer
+    # the encoder (dense attention + MLP) and the decoder's cross-attention
+    if cfg.is_encdec:
+        enc = cfg.encoder_layers * (
+            4 * d * cfg.num_heads * cfg.head_dim + mlp_params(cfg.d_ff))
+        cross = cfg.num_layers * 4 * d * cfg.num_heads * cfg.head_dim
+        total += enc + cross
+    return total
+
+
+# ----------------------------------------------------------------------------
+# input shapes of the dry-run (``configs/__init__.py:203-218``)
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+class Spec(NamedTuple):
+    """A model input's shape and dtype, allocated nowhere (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape) -> Dict[str, Spec]:
+    """Stand-ins for every model input of ``shape`` (``configs/__init__.py:
+    277-306``): tokens and labels to train, tokens to prefill (and the
+    encoder's tokens at a quarter of the length, and media embeddings),
+    one token and its position to decode against a cache of ``seq_len``."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    media = {}
+    if cfg.frontend != "none":
+        media["media"] = Spec((b, cfg.num_media_tokens, cfg.d_model),
+                              torch.bfloat16)
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": Spec((b, s), i32)}
+        if shape.kind == "train":
+            out["labels"] = Spec((b, s), i32)
+        if cfg.is_encdec:
+            out["encoder_tokens"] = Spec((b, s // 4), i32)
+        out.update(media)
+        return out
+    return {"tokens": Spec((b, 1), i32), "positions": Spec((b,), i32)}
 
 
 ARCH_IDS = [

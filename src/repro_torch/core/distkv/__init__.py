@@ -5,4 +5,5 @@ from repro_torch.core.distkv.prefixshare import (  # noqa: F401
 from repro_torch.core.distkv.rmanager import (  # noqa: F401
     RManager, RBlock, RemoteLease, SeqKV)
 from repro_torch.core.distkv.dist_attention import (  # noqa: F401
-    attention_partial, merge_partials_tree)
+    attention_partial, dist_attention, dist_attention_ref,
+    merge_partials, merge_partials_tree, micro_attention_partial)

@@ -7,9 +7,14 @@ maximum ``m`` and the sum of weights ``l``. Partials over disjoint key sets
 merge exactly into the attention over their union. The engine's MLA decode
 attends through one partial and the merge, as the reference's does, and a
 request served from a zero-copy lease merges its local partial with the
-remote one read from the creditor's pages; the mesh parts
-(``dist_attention``, the ``pmax`` / ``psum`` merge) come with the sharding
-slice of the port.
+remote one read from the creditor's pages.
+
+On a mesh (:func:`dist_attention`) the KV sequence axis is sharded over a
+mesh dimension: each rank attends over its shard
+(:func:`micro_attention_partial`) and :func:`merge_partials` combines the
+partials with an all-reduce of the maxima, then of the rescaled sums and
+outputs. K/V never move. ``local_map`` stands in for the reference's
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -17,6 +22,33 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.core import collectives
+
+
+def micro_attention_partial(q, k, v, valid, *,
+                            scale: Optional[float] = None):
+    """A shard's micro-attention partial for one query a sequence
+    (``dist_attention.py:29-39``). q: (B, H, Dh); k, v: (B, S_local, Hkv,
+    Dh); valid: (B, S_local) bool. Returns (o (B, H, Dv) float32,
+    un-normalised; m (B, H); l (B, H))."""
+    o, m, l = attention_partial(q[:, None], k, v, valid[:, None, :],
+                                scale=scale)
+    return o[:, 0], m[:, 0], l[:, 0]
+
+
+def merge_partials(o, m, l, mesh, dim):
+    """The log-sum-exp merge of the partials of the ranks of mesh
+    dimension(s) ``dim`` (``dist_attention.py:42-52``): the global
+    maximum, then the all-reduced rescaled sums. o: (B, H, Dv); m, l:
+    (B, H). Returns the normalised (B, H, Dv)."""
+    m_glob = collectives.pmax(m, mesh, dim)
+    corr = torch.exp(m - m_glob)
+    l_glob = collectives.psum(l * corr, mesh, dim)
+    o_glob = collectives.psum(o * corr[..., None], mesh, dim)
+    return o_glob / l_glob.clamp_min(1e-9)[..., None]
 
 
 def attention_partial(q, k, v, mask, *, scale: Optional[float] = None):
@@ -55,3 +87,53 @@ def merge_partials_tree(os, ms, ls):
         acc_l = acc_l + l * corr
         acc_o = acc_o + o * corr[..., None]
     return acc_o / acc_l.clamp_min(1e-9)[..., None]
+
+
+def dist_attention(mesh, q, k, v, context_lens, *, axis: str = "model"):
+    """DistAttention decode over a sequence-sharded KV cache
+    (``dist_attention.py:95-118``). q: (B, H, Dh) and context_lens: (B,)
+    replicated; k, v: (B, S, Hkv, Dh) with S sharded over mesh dimension
+    ``axis`` (plain tensors are sharded here, each rank keeping its
+    slice). A key is valid below its sequence's length, by absolute
+    position. Returns (B, H, Dv) float32, replicated."""
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    s_local = k.shape[1] // n
+    seq = [Shard(1) if name == axis else Replicate()
+           for name in mesh.mesh_dim_names]
+    rep = [Replicate()] * mesh.ndim
+    if not isinstance(k, DTensor):
+        from repro_torch.launch.sharding import shard_tensor
+        k, v = shard_tensor(k, mesh, seq), shard_tensor(v, mesh, seq)
+
+    def shard_fn(q_l, k_l, v_l, lens):
+        idx = mesh.get_local_rank(axis)
+        pos = idx * s_local + torch.arange(s_local, device=k_l.device)
+        valid = pos[None, :] < lens[:, None]
+        o, m, l = micro_attention_partial(q_l, k_l, v_l, valid)
+        return merge_partials(o, m, l, mesh, axis)
+
+    fn = local_map(shard_fn, out_placements=rep,
+                   in_placements=(rep, seq, seq, rep), device_mesh=mesh,
+                   redistribute_inputs=True)
+    if not isinstance(q, DTensor):
+        q = DTensor.from_local(q, mesh, rep, run_check=False)
+    if not isinstance(context_lens, DTensor):
+        context_lens = DTensor.from_local(context_lens, mesh, rep,
+                                          run_check=False)
+    return fn(q, k, v, context_lens)
+
+
+def dist_attention_ref(q, k, v, context_lens):
+    """The unsharded oracle (``dist_attention.py:121-133``): float32
+    softmax attention of q (B, H, Dh) over the first ``context_lens``
+    keys of k, v (B, S, Hkv, Dh)."""
+    b, h, dh = q.shape
+    hkv = k.shape[2]
+    valid = torch.arange(k.shape[1], device=k.device)[None, :] \
+        < context_lens[:, None]
+    qg = q.reshape(b, hkv, h // hkv, dh).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) / dh ** 0.5
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return o.reshape(b, h, v.shape[-1])

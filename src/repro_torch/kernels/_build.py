@@ -19,6 +19,7 @@ from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -105,6 +106,18 @@ def refuse_grad(fn: str, *tensors) -> None:
         raise RuntimeError(f"{fn}: the kernel has no backward; call it "
                            "under torch.no_grad() or with inputs that do "
                            "not require grad")
+
+
+def refuse_dtensor(fn: str, *tensors) -> None:
+    """Raise for a DTensor argument of kernel wrapper ``fn``, on every
+    device. A kernel reads one device's memory through raw pointers: a
+    sharded tensor's pointer is one shard, so the call would compute on
+    a shard as if it were the whole. The mesh paths (a ``MeshPolicy``)
+    run the plain versions instead; nothing falls back here."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{fn}: a DTensor argument; the kernel takes one "
+                        "device's tensors (a mesh runs the plain path: "
+                        "blockwise_attention, ssd_chunked)")
 
 
 def call(fn, device: int, *args) -> int:

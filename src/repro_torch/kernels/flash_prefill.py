@@ -105,6 +105,7 @@ def flash_prefill(q, k, v, *, causal: bool = True,
     stride; one dtype (float32 or bfloat16) for q, k, v and the output.
     """
     _build.refuse_grad("flash_prefill", q, k, v)
+    _build.refuse_dtensor("flash_prefill", q, k, v)
     _same_device("flash_prefill", q, k=k, v=v)
     if window is not None and window < 1:
         raise ValueError(f"flash_prefill: window must be >= 1, got {window}")
@@ -142,6 +143,7 @@ def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
     pool. Keys are read only at positions ``< q_offset + S``.
     """
     _build.refuse_grad("prefill_attention_paged", q, k_pool, v_pool)
+    _build.refuse_dtensor("prefill_attention_paged", q, k_pool, v_pool)
     _same_device("prefill_attention_paged", q, k_pool=k_pool, v_pool=v_pool,
                  page_ids=page_ids)
     if window is not None and window < 1:
@@ -205,6 +207,7 @@ def prefill_attention(q, k, v, *, window: Optional[int] = None,
     ``[b]``: B launches, no copy of K/V.
     """
     _build.refuse_grad("prefill_attention", q, k, v)
+    _build.refuse_dtensor("prefill_attention", q, k, v)
     _same_device("prefill_attention", q, k=k, v=v)
     if window is not None and window < 1:
         raise ValueError(f"prefill_attention: window must be >= 1, got "

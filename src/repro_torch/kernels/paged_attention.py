@@ -104,6 +104,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     must be a valid page of the pool; the kernel reads no other entry.
     """
     _build.refuse_grad("paged_attention", q, k_pages, v_pages)
+    _build.refuse_dtensor("paged_attention", q, k_pages, v_pages)
     _check_devices(q, k_pages, v_pages, block_tables, context_lens)
     if window is not None and window < 1:
         raise ValueError(f"paged_attention: window must be >= 1, got "

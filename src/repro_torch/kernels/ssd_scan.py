@@ -74,6 +74,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
     output is read in place); p <= 64 and n <= 128.
     """
     _build.refuse_grad("ssd_scan", x, dt, A, B, C)
+    _build.refuse_dtensor("ssd_scan", x, dt, A, B, C)
     b, l, h, p = x.shape
     n = B.shape[3]
     if chunk < 1 or l % chunk:

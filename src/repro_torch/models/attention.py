@@ -33,9 +33,11 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.layers import apply_rope, dense, dense_init, mlp, \
-    norm_init, pad_last, rms_norm
+from repro_torch.models.layers import NO_POLICY, ShardingPolicy, \
+    apply_rope, dense, dense_init, mlp, norm_init, pad_last, rms_norm, \
+    split_heads
 
 # queries per block of the score matrix: bounds live memory at
 # (B, Q_BLOCK, H, Skv) float32 without changing any query's result
@@ -103,12 +105,25 @@ def _bf16(x):
 
 def blockwise_attention(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None, q_offset: int = 0,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        policy: ShardingPolicy = NO_POLICY):
     """q: (B,S,H,Dh); k,v: (B,Skv,Hkv,Dh). GQA broadcast, float32 softmax.
 
     ``q_offset``: absolute position of q[0] relative to k[0]. Valid keys
     for a query at ``p`` are ``k <= p`` (causal) and ``k > p - window``.
+
+    Where the policy prefers flat heads (H divides the ``model`` axis and
+    Hkv does not: mistral-large's 96 / 8 heads on 16), K/V are broadcast
+    to H heads and the scores keep a flat, shardable head axis
+    (``attention.py:128-148`` of the reference): the same products as the
+    grouped form. A mesh policy runs the attention on each rank's heads
+    and sequences where the layouts allow (``local_attention``).
     """
+    if policy is not NO_POLICY:
+        out = policy.local_attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, scale=scale)
+        if out is not None:
+            return out
     b, s, h, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -117,6 +132,12 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     kg = _bf16(k)
     vg = _bf16(v)
     kv_pos = torch.arange(skv, device=q.device)
+    flat = policy.prefers_flat_heads(h, hkv)
+    if flat:
+        kg = policy.act(kg[:, :, :, None, :].expand(b, skv, hkv, g, dh)
+                        .reshape(b, skv, h, dh), "kvrep_bshd")
+        vg = policy.act(vg[:, :, :, None, :].expand(b, skv, hkv, g, dv)
+                        .reshape(b, skv, h, dv), "kvrep_bshd")
     outs = []
     for c0 in range(0, s, Q_BLOCK):
         qc = q[:, c0:c0 + Q_BLOCK]
@@ -127,11 +148,21 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
             mask &= qpos[:, None] >= kv_pos[None, :]
         if window is not None:
             mask &= kv_pos[None, :] > qpos[:, None] - window
+        if flat:
+            scores = policy.act(torch.einsum("bchd,bshd->bchs", _bf16(qc),
+                                             kg) * scale, "scores_bchs")
+            scores = scores.masked_fill(~mask[None, :, None, :],
+                                        float("-inf"))
+            probs = policy.act(torch.softmax(scores, dim=-1), "scores_bchs")
+            out = torch.einsum("bchs,bshd->bchd", _bf16(probs), vg)
+            outs.append(out.to(q.dtype))
+            continue
         qc = _bf16(qc).reshape(b, c, hkv, g, dh)
-        scores = torch.einsum("bchgd,bshd->bchgs", qc, kg) * scale
+        scores = policy.act(torch.einsum("bchgd,bshd->bchgs", qc, kg)
+                            * scale, "scores_bchgs")
         scores = scores.masked_fill(~mask[None, :, None, None, :],
                                     float("-inf"))
-        probs = torch.softmax(scores, dim=-1)
+        probs = policy.act(torch.softmax(scores, dim=-1), "scores_bchgs")
         out = torch.einsum("bchgs,bshd->bchgd", _bf16(probs), vg)
         outs.append(out.reshape(b, c, h, dv).to(q.dtype))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
@@ -164,29 +195,36 @@ def gqa_layer(cfg, p, x, positions, attend, mlp_fn=None):
 
 
 def gqa_forward(cfg, p, x, positions, *, window=None, causal: bool = True,
-                kv_override=None, return_kv: bool = False, attend=None):
+                kv_override=None, return_kv: bool = False, attend=None,
+                policy: ShardingPolicy = NO_POLICY):
     """Full-sequence GQA attention block (no norm, no residual). Returns
     the output, and with ``return_kv`` also the (k, v) it attended over.
     ``kv_override=(k, v)`` is cross-attention (``attention.py:219-246``):
     K/V (B, Skv, Hkv, Dh) come from the encoder (:func:`encode_kv`) and
     neither q nor k is roped. ``attend(q, k, v) -> ctx`` replaces
     ``blockwise_attention(causal=causal, window=window)``
-    (``Model.prefill`` passes the kernel's dispatch)."""
+    (``Model.prefill`` passes the kernel's dispatch). ``policy`` hooks
+    sit where the reference's do (``attention.py:207-242``)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(p["wq"], x).reshape(b, s, h, dh)
+    q = split_heads(dense(p["wq"], x), h, dh)
     if kv_override is None:
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(dense(p["wk"], x).reshape(b, s, hkv, dh), positions,
+        k = apply_rope(split_heads(dense(p["wk"], x), hkv, dh), positions,
                        cfg.rope_theta)
-        v = dense(p["wv"], x).reshape(b, s, hkv, dh)
+        v = split_heads(dense(p["wv"], x), hkv, dh)
     else:
         k, v = kv_override
+    q = policy.act(q, "heads_bshd")
+    k = policy.act(k, "kv_bshd")
+    v = policy.act(v, "kv_bshd")
     if attend is None:
-        out = blockwise_attention(q, k, v, causal=causal, window=window)
+        out = blockwise_attention(q, k, v, causal=causal, window=window,
+                                  policy=policy)
     else:
         out = attend(q, k, v)
-    y = dense(p["wo"], out.reshape(b, s, h * dh))
+    out = policy.act(out, "heads_bshd")
+    y = dense(p["wo"], out.reshape(b, s, h * dh), policy, "act_bsd")
     if return_kv:
         return y, (k, v)
     return y
@@ -197,8 +235,8 @@ def encode_kv(cfg, p, x):
     each (B, Skv, Hkv, Dh), without rope (``attention.py:249-255``)."""
     b, s, _ = x.shape
     hkv, dh = cfg.num_kv_heads, cfg.head_dim
-    return dense(p["wk"], x).reshape(b, s, hkv, dh), \
-        dense(p["wv"], x).reshape(b, s, hkv, dh)
+    return split_heads(dense(p["wk"], x), hkv, dh), \
+        split_heads(dense(p["wv"], x), hkv, dh)
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +251,13 @@ def cache_update(cache_pos, pos):
 
 def _write_slot(buf, slot, new):
     """A copy of ``buf`` (B, Sc, ...) with ``new`` (B, ...) written at each
-    row's ``slot``; ``buf`` itself is not changed."""
+    row's ``slot``; ``buf`` itself is not changed. A DTensor (a mesh's
+    sequence-sharded cache) takes the write elementwise over the slot
+    index, which shards; an indexed write into a sharded axis does not."""
+    if isinstance(buf, DTensor):
+        at = torch.arange(buf.shape[1], device=buf.device) == slot[:, None]
+        at = at.reshape(at.shape + (1,) * (buf.dim() - 2))
+        return torch.where(at, new.to(buf.dtype)[:, None], buf)
     out = buf.clone()
     out[torch.arange(buf.shape[0], device=buf.device), slot] = \
         new.to(buf.dtype)
@@ -229,22 +273,25 @@ def _decode_mask(cache_pos, pos, window):
 
 
 def gqa_decode(cfg, p, x, cache: KVCache, pos, *, window=None,
-               kv_override=None):
+               kv_override=None, policy: ShardingPolicy = NO_POLICY):
     """x: (B, 1, D); pos: (B,) absolute position of the new token. Writes
     its K/V into the ring and attends over the valid slots, as the
     reference does (``attention.py:282-324``): bfloat16 q, k, v and
     probabilities, float32 scores and sums. With ``kv_override=(k, v)``
     (cross-attention over the encoder's K/V, (B, Skv, Hkv, Dh)) nothing is
     roped or written and every key is valid; ``cache`` is returned as it
-    came (the reference passes None). Returns (y (B, 1, D), the cache)."""
+    came (the reference passes None). Returns (y (B, 1, D), the cache).
+    Over a sequence-sharded cache (a mesh policy's DistAttention layout)
+    the policy's ``decode_attention`` computes the attention: float32
+    partials per shard and their merge, no gather of K/V."""
     b = x.shape[0]
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(p["wq"], x).reshape(b, 1, h, dh)
+    q = split_heads(dense(p["wq"], x), h, dh)
     if kv_override is None:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        knew = apply_rope(dense(p["wk"], x).reshape(b, 1, hkv, dh),
+        knew = apply_rope(split_heads(dense(p["wk"], x), hkv, dh),
                           pos[:, None], cfg.rope_theta)
-        vnew = dense(p["wv"], x).reshape(b, 1, hkv, dh)
+        vnew = split_heads(dense(p["wv"], x), hkv, dh)
         slot = cache_update(cache.pos, pos)
         cache = KVCache(k=_write_slot(cache.k, slot, knew[:, 0]),
                         v=_write_slot(cache.v, slot, vnew[:, 0]),
@@ -254,14 +301,21 @@ def gqa_decode(cfg, p, x, cache: KVCache, pos, *, window=None,
     else:
         k, v = kv_override
         mask = None  # every encoder position
-    qg = _bf16(q.reshape(b, hkv, h // hkv, dh))
-    scores = torch.einsum("bhgd,bshd->bhgs", qg, _bf16(k)) / math.sqrt(dh)
-    if mask is not None:
-        scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", _bf16(probs), _bf16(v))
+    k = policy.act(k, "kvcache_bskd")
+    v = policy.act(v, "kvcache_bskd")
+    out = None if policy is NO_POLICY else policy.decode_attention(
+        _bf16(q[:, 0]), k, v, mask, 1.0 / math.sqrt(dh))
+    if out is None:
+        qg = _bf16(q.reshape(b, hkv, h // hkv, dh))
+        scores = torch.einsum("bhgd,bshd->bhgs", qg, _bf16(k)) \
+            / math.sqrt(dh)
+        if mask is not None:
+            scores = scores.masked_fill(~mask[:, None, None, :],
+                                        float("-inf"))
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgs,bshd->bhgd", _bf16(probs), _bf16(v))
     out = out.reshape(b, 1, h * dh).to(x.dtype)
-    return dense(p["wo"], out), cache
+    return dense(p["wo"], out, policy, "act_bsd"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +331,7 @@ def _mla_q(cfg, p, x):
                                       cfg.norm_eps))
     else:
         q = dense(p["wq"], x)
-    q = q.reshape(b, s, cfg.num_heads, dn + dr)
+    q = split_heads(q, cfg.num_heads, dn + dr)
     return q[..., :dn], q[..., dn:]
 
 
@@ -298,7 +352,8 @@ def _mla_latent(cfg, p, x, positions):
     return ckv, krope
 
 
-def mla_forward(cfg, p, x, positions, *, return_latent: bool = False):
+def mla_forward(cfg, p, x, positions, *, return_latent: bool = False,
+                policy: ShardingPolicy = NO_POLICY):
     """Full-sequence causal MLA block (no norm, no residual): decompress the
     latent to per-head K/V and run standard attention, scaled by the
     concatenated head dim dn + dr. With ``return_latent`` also the latent
@@ -309,24 +364,27 @@ def mla_forward(cfg, p, x, positions, *, return_latent: bool = False):
     qn, qr = _mla_q(cfg, p, x)
     qr = apply_rope(qr, positions, cfg.rope_theta)
     ckv, krope = _mla_latent(cfg, p, x, positions)
-    kvb = dense(p["wkv_b"], ckv).reshape(b, s, h, dn + dv)
+    kvb = split_heads(dense(p["wkv_b"], ckv), h, dn + dv)
     kn, v = kvb[..., :dn], kvb[..., dn:]
-    q = torch.cat([qn, qr], dim=-1)
+    q = policy.act(torch.cat([qn, qr], dim=-1), "heads_bshd")
     k = torch.cat([kn, krope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
-    out = blockwise_attention(q, k, v, causal=True)
-    y = dense(p["wo"], out.reshape(b, s, h * dv))
+    out = blockwise_attention(q, k, v, causal=True, policy=policy)
+    y = dense(p["wo"], out.reshape(b, s, h * dv), policy, "act_bsd")
     if return_latent:
         return y, (ckv, krope)
     return y
 
 
-def mla_decode(cfg, p, x, cache: MLACache, pos):
+def mla_decode(cfg, p, x, cache: MLACache, pos, *,
+               policy: ShardingPolicy = NO_POLICY):
     """Matrix-absorbed MLA decode over the latent ring
     (``attention.py:380-424``): writes the new token's latent, scores
     ``q_lat . ckv + qr . krope`` over the valid slots, takes the context
     in the latent and lifts it through W_UV; every product on bfloat16
     operands with float32 sums. x: (B, 1, D); pos: (B,). Returns (y, the
-    new cache)."""
+    new cache). Over a sequence-sharded latent the policy's
+    ``decode_attention`` attends, the latent as one KV head (keys ckv and
+    krope, values ckv)."""
     b = x.shape[0]
     h, dv = cfg.num_heads, cfg.v_head_dim
     qn, qr = _mla_q(cfg, p, x)  # (B, 1, H, dn), (B, 1, H, dr)
@@ -338,17 +396,24 @@ def mla_decode(cfg, p, x, cache: MLACache, pos):
                      pos=_write_slot(cache.pos, slot, pos))
     mask = _decode_mask(cache.pos, pos, None)  # (B, Sc)
     w_uk, w_uv = mla_absorb(cfg, p)
-    ckv = _bf16(cache.ckv)
+    ckv = _bf16(policy.act(cache.ckv, "mlacache_bsr"))
     q_lat = torch.einsum("bhd,rhd->bhr", _bf16(qn[:, 0]), _bf16(w_uk))
-    scores = torch.einsum("bhr,bsr->bhs", _bf16(q_lat), ckv)
-    scores = scores + torch.einsum("bhd,bsd->bhs", _bf16(qr[:, 0]),
-                                   _bf16(cache.krope))
-    scores = (scores * _mla_scale(cfg)).masked_fill(~mask[:, None, :],
-                                                    float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bhs,bsr->bhr", _bf16(probs), ckv)
+    krope = _bf16(cache.krope)
+    ctx = None if policy is NO_POLICY else policy.decode_attention(
+        torch.cat([_bf16(q_lat), _bf16(qr[:, 0])], dim=-1),
+        torch.cat([ckv, krope], dim=-1)[:, :, None], ckv[:, :, None], mask,
+        _mla_scale(cfg))
+    if ctx is None:
+        scores = torch.einsum("bhr,bsr->bhs", _bf16(q_lat), ckv)
+        scores = scores + torch.einsum("bhd,bsd->bhs", _bf16(qr[:, 0]),
+                                       krope)
+        scores = (scores * _mla_scale(cfg)).masked_fill(~mask[:, None, :],
+                                                        float("-inf"))
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhs,bsr->bhr", _bf16(probs), ckv)
     out = torch.einsum("bhr,rhd->bhd", _bf16(ctx), _bf16(w_uv))
-    return dense(p["wo"], out.reshape(b, 1, h * dv).to(x.dtype)), cache
+    return dense(p["wo"], out.reshape(b, 1, h * dv).to(x.dtype), policy,
+                 "act_bsd"), cache
 
 
 def mla_absorb(cfg, p):

@@ -1,6 +1,7 @@
 """Mixture-of-Experts with capacity-based dispatch, one for one with
-``repro.models.moe`` on one group (the reference's ``NO_POLICY``; its mesh
-``moe_apply`` branch comes with the sharding slice of the port).
+``repro.models.moe``: GShard's grouped dispatch, and the policy's
+``moe_apply`` hook (the mesh's expert-parallel form,
+``repro_torch.launch.sharding.MeshPolicy.moe_apply``).
 
 Top-k routing with a static per-expert capacity: each (token, choice) takes
 the next place of its expert, in token-major, choice-minor order, and a
@@ -20,8 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, mlp, mlp_init, \
-    normal_init
+from repro_torch.models.layers import NO_POLICY, ShardingPolicy, \
+    dense_init, mlp, mlp_init, normal_init
 
 
 def moe_init(cfg, gen, dtype, device, *, lead=()):
@@ -53,53 +54,73 @@ def capacity(cfg, num_tokens: int) -> int:
     return max(8, (c + 7) // 8 * 8)
 
 
-def moe_forward(cfg, p, x, *, return_aux: bool = False,
+def moe_forward(cfg, p, x, *, policy: ShardingPolicy = NO_POLICY,
+                return_aux: bool = False,
                 capacity_tokens: Optional[int] = None):
     """x: (B, S, D) -> (B, S, D) [+ the Switch-style load-balance loss].
 
-    ``capacity_tokens`` sizes the experts' capacity in place of B * S (the
-    serving engine passes the reference's padded chunk length; the tokens
-    it would pad come after every real one, so only the capacity differs).
+    GShard's grouped dispatch (``moe.py:55-112`` of the reference): the
+    tokens split into ``policy.moe_groups`` groups (one per data shard on
+    a mesh; one without a policy), and each group fills its own capacity
+    of every expert, so drops depend on the groups. A policy's
+    ``moe_apply`` (the mesh's expert-parallel form) replaces the dispatch
+    where it returns a result.
+
+    ``capacity_tokens`` sizes the experts' capacity in place of a group's
+    token count (the serving engine passes the reference's padded chunk
+    length; the tokens it would pad come after every real one, so only
+    the capacity differs).
     """
+    out = policy.moe_apply(cfg, p, x, return_aux)
+    if out is not None:
+        return out
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.moe_top_k
     t = b * s
-    cap = capacity(cfg, t if capacity_tokens is None else capacity_tokens)
-    xt = x.reshape(t, d)
+    g = policy.moe_groups if t % policy.moe_groups == 0 else 1
+    tg = t // g
+    cap = capacity(cfg, tg if capacity_tokens is None else capacity_tokens)
+    xt = x.reshape(g, tg, d)
 
-    probs = torch.softmax(xt.float() @ p["router"]["w"], dim=-1)  # (T, E)
+    probs = torch.softmax(xt.float() @ p["router"]["w"], dim=-1)  # (G,Tg,E)
     # lax.top_k: descending, the lower index first among equal values; a
     # stable descending sort promises that order, torch.topk does not
     topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topv, topi = topv[:, :k], topi[:, :k]
+    topv, topi = topv[..., :k], topi[..., :k]
     topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # each (token, choice)'s place in its expert: an exclusive cumsum over
-    # the token-major, choice-minor order
-    onehot = F.one_hot(topi.reshape(t * k), e)  # (T*k, E)
-    pos = ((onehot.cumsum(0) - onehot) * onehot).sum(-1).view(t, k)
+    # each (token, choice)'s place in its expert within its group: an
+    # exclusive cumsum over the token-major, choice-minor order
+    onehot = F.one_hot(topi.reshape(g, tg * k), e)  # (G, Tg*k, E)
+    pos = ((onehot.cumsum(1) - onehot) * onehot).sum(-1).view(g, tg, k)
     keep = pos < cap
 
-    # dispatch (E, cap, D): dropped places land in a spare row past cap
-    disp = x.new_zeros((e, cap + 1, d))
-    disp[topi, torch.where(keep, pos, cap)] = \
-        xt[:, None, :].expand(t, k, d)
-    disp = disp[:, :cap]
+    # dispatch (G, E, cap, D): dropped places land in a spare row past cap
+    gidx = torch.arange(g, device=x.device)[:, None, None].expand(g, tg, k)
+    disp = x.new_zeros((g, e, cap + 1, d))
+    disp[gidx, topi, torch.where(keep, pos, cap)] = \
+        xt[:, :, None, :].expand(g, tg, k, d)
+    disp = policy.act(disp[:, :, :cap], "expert_gecd")
 
-    # expert MLPs: gated SwiGLU, batched over the experts
-    h = F.silu(torch.bmm(disp, p["gate"])) * torch.bmm(disp, p["up"])
-    out = torch.bmm(h, p["down"])  # (E, cap, D)
+    # expert MLPs: gated SwiGLU, batched over the experts (E, G cap, D)
+    de = disp[0] if g == 1 else \
+        disp.transpose(0, 1).reshape(e, g * cap, d)
+    h = F.silu(torch.bmm(de, p["gate"])) * torch.bmm(de, p["up"])
+    h = policy.act(h.view(e, g, cap, -1).transpose(0, 1), "expert_gecf")
+    h = h[0] if g == 1 else h.transpose(0, 1).reshape(e, g * cap, -1)
+    out = torch.bmm(h, p["down"]).view(e, g, cap, d).transpose(0, 1)
+    out = policy.act(out, "expert_gecd")  # (G, E, cap, D)
 
     # combine: each (token, choice)'s place back, weighted in the model
     # type (the reference casts topv * keep before the product)
-    gathered = out[topi, torch.where(keep, pos, 0)]  # (T, k, D)
+    gathered = out[gidx, topi, torch.where(keep, pos, 0)]  # (G, Tg, k, D)
     w = (topv * keep).to(x.dtype)
-    y = (gathered * w[..., None]).sum(1).view(b, s, d)
+    y = (gathered * w[..., None]).sum(2).view(b, s, d)
     if "shared" in p:
-        y = y + mlp(p["shared"], x)
+        y = y + mlp(p["shared"], x, policy)
 
     if return_aux:
-        frac_tokens = F.one_hot(topi[:, 0], e).float().mean(0)
-        aux = e * (frac_tokens * probs.mean(0)).sum()
+        frac_tokens = F.one_hot(topi[..., 0], e).float().mean((0, 1))
+        aux = e * (frac_tokens * probs.mean((0, 1))).sum()
         return y, aux
     return y

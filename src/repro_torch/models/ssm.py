@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.models.layers import dense, dense_init
+from repro_torch.models.layers import NO_POLICY, ShardingPolicy, dense, \
+    dense_init, split_heads
 
 
 class SSMCache(NamedTuple):
@@ -137,11 +138,13 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int):
     return (y_diag + y_off).reshape(b, l, h, pdim), state
 
 
-def ssm_forward(cfg, p, x, *, return_cache: bool = False, scan=ssd_scan):
+def ssm_forward(cfg, p, x, *, return_cache: bool = False, scan=ssd_scan,
+                policy: ShardingPolicy = NO_POLICY):
     """Full-sequence Mamba2 block. x: (B, S, D) -> (B, S, D); with
     ``return_cache`` also the decode cache after the last position.
     ``scan(x, dt, A, B, C, chunk=)`` is the chunked SSD scan: the kernel's
-    wrapper by default, :func:`ssd_chunked` on the training path."""
+    wrapper by default, :func:`ssd_chunked` on the training path.
+    ``policy`` hooks as the reference's (``ssm.py:144, 154``)."""
     b, s, _ = x.shape
     h, pdim, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_groups
@@ -149,17 +152,19 @@ def ssm_forward(cfg, p, x, *, return_cache: bool = False, scan=ssd_scan):
     proj = dense(p["in_proj"], x)
     z, xbc_raw, dt = _split_proj(cfg, proj)
     xbc = _causal_conv(cfg, p, xbc_raw)
-    xin = xbc[..., :din].reshape(b, s, h, pdim)
-    bmat = xbc[..., din:din + g * n].reshape(b, s, g, n)
-    cmat = xbc[..., din + g * n:].reshape(b, s, g, n)
+    xin = split_heads(xbc[..., :din], h, pdim)
+    bmat = split_heads(xbc[..., din:din + g * n], g, n)
+    cmat = split_heads(xbc[..., din + g * n:], g, n)
     dtv = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
+    xin = policy.act(xin, "ssm_bshp")
     y, final_state = scan(xin, dtv, A, bmat, cmat,
                           chunk=min(cfg.ssm_chunk, s))
     y = y + xin.float() * p["D"][:, None]
     y = y.reshape(b, s, din).to(x.dtype)
-    out = dense(p["out_proj"], _gated_norm(cfg, p, y, z, x.dtype))
+    out = dense(p["out_proj"], _gated_norm(cfg, p, y, z, x.dtype), policy,
+                "act_bsd")
     if return_cache:
         w = cfg.ssm_conv_width
         tail = F.pad(xbc_raw, (0, 0, max(w - 1 - s, 0), 0))[:, -(w - 1):]
@@ -167,7 +172,8 @@ def ssm_forward(cfg, p, x, *, return_cache: bool = False, scan=ssd_scan):
     return out
 
 
-def ssm_decode(cfg, p, x, cache: SSMCache):
+def ssm_decode(cfg, p, x, cache: SSMCache, *,
+               policy: ShardingPolicy = NO_POLICY):
     """One-token recurrent update. x: (B, 1, D) -> (B, 1, D), new cache."""
     b = x.shape[0]
     h, pdim, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
@@ -180,11 +186,11 @@ def ssm_decode(cfg, p, x, cache: SSMCache):
     win = torch.cat([cache.conv, xbc_new], dim=1)  # (B, W, C)
     conv_out = F.silu((win * p["conv_w"][None]).sum(1) + p["conv_b"])
 
-    xin = conv_out[:, :din].reshape(b, h, pdim)
+    xin = split_heads(conv_out[:, :din], h, pdim)
     rep = h // g
-    bh = conv_out[:, din:din + g * n].reshape(b, g, n) \
+    bh = split_heads(conv_out[:, din:din + g * n], g, n) \
         .repeat_interleave(rep, dim=1)
-    ch = conv_out[:, din + g * n:].reshape(b, g, n) \
+    ch = split_heads(conv_out[:, din + g * n:], g, n) \
         .repeat_interleave(rep, dim=1)
     dtv = F.softplus(dt[:, 0].float() + p["dt_bias"])  # (B, H)
     A = -torch.exp(p["A_log"])
@@ -195,5 +201,5 @@ def ssm_decode(cfg, p, x, cache: SSMCache):
     y = torch.einsum("bhpn,bhn->bhp", state, ch.float())
     y = y + xin.float() * p["D"][:, None]
     y = _gated_norm(cfg, p, y.reshape(b, 1, din), z, x.dtype)
-    out = dense(p["out_proj"], y)
+    out = dense(p["out_proj"], y, policy, "act_bsd")
     return out, SSMCache(conv=win[:, 1:], state=state)

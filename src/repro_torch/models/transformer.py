@@ -49,6 +49,11 @@ cross-attention; the SSM heads launch the ``ssd_scan`` kernel. The decode
 attention, self and cross, is plain PyTorch, as the reference's is XLA.
 The paged engine serves only uniform GQA or MLA stacks without
 cross-attention; hybrid, SSM and encoder-decoder models run here.
+
+Every entry point takes ``policy`` (``models.layers.ShardingPolicy``),
+threaded to the reference's hook sites. Under a mesh policy
+(``launch.sharding.MeshPolicy``: DTensor parameters and inputs) the
+calls run in ``policy.scope()`` and take the plain attention and scan.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ import dataclasses
 from typing import List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
@@ -65,8 +71,8 @@ from repro_torch.kernels.flash_prefill import prefill_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import cross_entropy, embed, mlp, rms_norm, \
-    unembed
+from repro_torch.models.layers import NO_POLICY, ShardingPolicy, \
+    cross_entropy, embed, mlp, rms_norm, unembed
 from repro_torch.models.moe import moe_forward
 
 
@@ -120,11 +126,24 @@ def encoder_plan(cfg: ArchConfig) -> List[Segment]:
     return [Segment(cfg.encoder_layers, "gqa", "dense", "global")]
 
 
+def _layer_axis_whole(t):
+    """A stacked DTensor leaf of per-layer vectors (norm scales, biases),
+    replicated: the layout rules treat the stack as a matrix (layers over
+    data, the vector over ``model``), but a layer loop reads every layer,
+    and a vector sharded over ``model`` would pull the activations it
+    scales onto that layout. Stacked matrices shard only their own axes."""
+    if isinstance(t, DTensor) and t.dim() == 2 and \
+            any(isinstance(pl, Shard) for pl in t.placements):
+        return t.redistribute(t.device_mesh,
+                              [Replicate()] * len(t.placements))
+    return t
+
+
 def layer_params(p_seg, i: int):
     """Parameters of layer ``i`` of a stacked segment (views, no copy)."""
     if isinstance(p_seg, dict):
         return {k: layer_params(v, i) for k, v in p_seg.items()}
-    return p_seg[i]
+    return _layer_axis_whole(p_seg)[i]
 
 
 def unstack_layers(p_seg, n: int):
@@ -138,72 +157,83 @@ def unstack_layers(p_seg, n: int):
     if isinstance(p_seg, dict):
         parts = {k: unstack_layers(v, n) for k, v in p_seg.items()}
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
-    return list(torch.unbind(p_seg))
+    return list(torch.unbind(_layer_axis_whole(p_seg)))
 
 
 def seg_window(cfg: ArchConfig, seg: Segment):
     return cfg.sliding_window if seg.attn_kind == "swa" else None
 
 
-def _plain_attention(q, k, v, window, causal=True):
-    return attn.blockwise_attention(q, k, v, causal=causal, window=window)
+def _plain_attention(q, k, v, window, causal=True, policy=NO_POLICY):
+    return attn.blockwise_attention(q, k, v, causal=causal, window=window,
+                                    policy=policy)
 
 
-def _kernel_attention(q, k, v, window, causal=True):
+def _kernel_attention(q, k, v, window, causal=True, policy=NO_POLICY):
     return prefill_attention(q, k, v, window=window, causal=causal)
 
 
-def _mlp_residual(cfg, seg: Segment, p, x, mlp_fn):
+def _scan(policy: ShardingPolicy):
+    """The SSM heads' scan: the kernel's wrapper, or the plain chunked scan
+    where the policy takes no kernel."""
+    return ssd_scan if policy.kernels else ssm_mod.ssd_chunked
+
+
+def _mlp_residual(cfg, seg: Segment, p, x, mlp_fn, policy=NO_POLICY):
     """The pre-norm residual MLP of a layer (``mlp_fn`` for MoE)."""
     if seg.mlp_kind == "none":
         return x
     h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-    return x + (mlp(p["mlp"], h2) if mlp_fn is None else mlp_fn(p["mlp"], h2))
+    return x + (mlp(p["mlp"], h2, policy) if mlp_fn is None
+                else mlp_fn(p["mlp"], h2))
 
 
 def _layer_forward(cfg, seg: Segment, p, x, positions, *, attention,
                    mlp_fn=None, collect: bool = False, causal: bool = True,
-                   enc_out=None, scan=ssd_scan):
+                   enc_out=None, scan=ssd_scan,
+                   policy: ShardingPolicy = NO_POLICY):
     """One full-sequence layer (``transformer.py:109-177``).
-    ``attention(q, k, v, window, causal) -> ctx`` is the attention of GQA,
-    hybrid and cross layers; ``causal=False`` in the encoder; ``scan`` the
-    SSM heads' chunked scan. A cross segment attends over ``enc_out`` (B,
+    ``attention(q, k, v, window, causal, policy) -> ctx`` is the attention
+    of GQA, hybrid and cross layers; ``causal=False`` in the encoder;
+    ``scan`` the SSM heads' chunked scan. A cross segment attends over ``enc_out`` (B,
     S_enc, D) after its self-attention. ``mlp_fn`` replaces the layer's
     MLP. Returns (x, aux, seed): the MoE load-balance loss of the layer
     (float32; zero but in a MoE layer run without ``mlp_fn``), and with
     ``collect`` the seed of the decode cache (gqa: (k, v); mla: (ckv,
     krope); ssm: SSMCache; hybrid: ((k, v), SSMCache); a cross segment:
-    (that seed, (ck, cv))), else None."""
+    (that seed, (ck, cv))), else None. ``policy``'s hooks as the
+    reference's."""
     window = seg_window(cfg, seg)
 
     def attend(q, k, v):
-        return attention(q, k, v, window, causal)
+        return attention(q, k, v, window, causal, policy)
 
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     seed = None
     if seg.mixer == "gqa":
         out = attn.gqa_forward(cfg, p["attn"], h, positions,
-                               return_kv=collect, attend=attend)
+                               return_kv=collect, attend=attend,
+                               policy=policy)
         if collect:
             out, seed = out
         x = x + out
     elif seg.mixer == "mla":
         out = attn.mla_forward(cfg, p["attn"], h, positions,
-                               return_latent=collect)
+                               return_latent=collect, policy=policy)
         if collect:
             out, seed = out
         x = x + out
     elif seg.mixer == "ssm":
         out = ssm_mod.ssm_forward(cfg, p["ssm"], h, return_cache=collect,
-                                  scan=scan)
+                                  scan=scan, policy=policy)
         if collect:
             out, seed = out
         x = x + out
     else:  # hybrid: parallel heads, averaged fusion
         a = attn.gqa_forward(cfg, p["attn"], h, positions,
-                             return_kv=collect, attend=attend)
+                             return_kv=collect, attend=attend, policy=policy)
         m = ssm_mod.ssm_forward(cfg, p["ssm"], h, return_cache=collect,
-                                scan=scan)
+                                scan=scan, policy=policy)
         if collect:
             (a, kv), (m, sc) = a, m
             seed = (kv, sc)
@@ -213,15 +243,17 @@ def _layer_forward(cfg, seg: Segment, p, x, positions, *, attention,
         ckv = attn.encode_kv(cfg, p["cross"], enc_out)
         x = x + attn.gqa_forward(
             cfg, p["cross"], hc, positions, kv_override=ckv,
-            attend=lambda q, k, v: attention(q, k, v, None, False))
+            attend=lambda q, k, v: attention(q, k, v, None, False, policy),
+            policy=policy)
         if collect:
             seed = (seed, ckv)
     if seg.mlp_kind == "moe" and mlp_fn is None:
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-        out, aux = moe_forward(cfg, p["mlp"], h2, return_aux=True)
+        out, aux = moe_forward(cfg, p["mlp"], h2, policy=policy,
+                               return_aux=True)
         return x + out, aux, seed
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _mlp_residual(cfg, seg, p, x, mlp_fn), aux, seed
+    return _mlp_residual(cfg, seg, p, x, mlp_fn, policy), aux, seed
 
 
 def mla_forward_layer(cfg, p, x, positions, mlp_fn=None):
@@ -233,7 +265,8 @@ def mla_forward_layer(cfg, p, x, positions, mlp_fn=None):
                           mlp_fn=mlp_fn)[0]
 
 
-def _layer_decode(cfg, seg: Segment, p, x, pos, cache):
+def _layer_decode(cfg, seg: Segment, p, x, pos, cache,
+                  policy: ShardingPolicy = NO_POLICY):
     """One-token layer step against its cache (``transformer.py:
     180-223``); a cross segment then attends over its cached encoder K/V.
     Returns (x, the new cache)."""
@@ -244,30 +277,34 @@ def _layer_decode(cfg, seg: Segment, p, x, pos, cache):
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     if seg.mixer == "gqa":
         out, cache = attn.gqa_decode(cfg, p["attn"], h, cache, pos,
-                                     window=window)
+                                     window=window, policy=policy)
         x = x + out
     elif seg.mixer == "mla":
-        out, cache = attn.mla_decode(cfg, p["attn"], h, cache, pos)
+        out, cache = attn.mla_decode(cfg, p["attn"], h, cache, pos,
+                                     policy=policy)
         x = x + out
     elif seg.mixer == "ssm":
-        out, cache = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache)
+        out, cache = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache,
+                                        policy=policy)
         x = x + out
     else:
         kv_c, ssm_c = cache
         a, kv_c = attn.gqa_decode(cfg, p["attn"], h, kv_c, pos,
-                                  window=window)
-        m, ssm_c = ssm_mod.ssm_decode(cfg, p["ssm"], h, ssm_c)
+                                  window=window, policy=policy)
+        m, ssm_c = ssm_mod.ssm_decode(cfg, p["ssm"], h, ssm_c,
+                                      policy=policy)
         x = x + 0.5 * (a + m)
         cache = (kv_c, ssm_c)
     if seg.cross:
         hc = rms_norm(p["ln_cross"], x, cfg.norm_eps)
         out, _ = attn.gqa_decode(cfg, p["cross"], hc, None, pos,
-                                 kv_override=(cross["ck"], cross["cv"]))
+                                 kv_override=(cross["ck"], cross["cv"]),
+                                 policy=policy)
         x = x + out
         cache = dict(cross, self=cache)
-    mlp_fn = (lambda pm, h2: moe_forward(cfg, pm, h2)) \
+    mlp_fn = (lambda pm, h2: moe_forward(cfg, pm, h2, policy=policy)) \
         if seg.mlp_kind == "moe" else None
-    return _mlp_residual(cfg, seg, p, x, mlp_fn), cache
+    return _mlp_residual(cfg, seg, p, x, mlp_fn, policy), cache
 
 
 # -- cache trees: NamedTuples, tuples and dicts of tensors --------------------
@@ -379,15 +416,15 @@ class Model:
                 yield seg, li, p_seg if seg.n == 1 else layer_params(p_seg, j)
                 li += 1
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, policy=NO_POLICY):
         cfg = self.cfg
         x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-        return unembed(params["embed"], x, cfg.vocab_size,
+        return unembed(params["embed"], x, cfg.vocab_size, policy,
                        fp32=cfg.logits_fp32)
 
     def _run_stack(self, plan, seg_params, x, *, attention, collect: bool,
                    causal: bool = True, enc_out=None, scan=ssd_scan,
-                   remat: bool = False):
+                   remat: bool = False, policy=NO_POLICY):
         """Run every layer of ``plan`` on the embedded ``x``, each under
         ``checkpoint`` with ``remat``. Returns (x, aux summed over the MoE
         layers in layer order, one seed per segment stacked along its layer
@@ -401,7 +438,7 @@ class Model:
                 return _layer_forward(cfg, seg, p, x, positions,
                                       attention=attention, collect=collect,
                                       causal=causal, enc_out=enc_out,
-                                      scan=scan)
+                                      scan=scan, policy=policy)
 
             per_layer = []
             for p in unstack_layers(p_seg, seg.n):
@@ -415,30 +452,31 @@ class Model:
                              else _tree_stack(per_layer))
         return x, aux, seeds
 
-    def _embed_with_media(self, params, tokens, media):
+    def _embed_with_media(self, params, tokens, media, policy=NO_POLICY):
         """Embedded tokens whose first ``media.shape[1]`` positions are the
         media embeddings (B, M, D) instead (``transformer.py:353-358``)."""
-        x = embed(params["embed"], tokens)
+        x = embed(params["embed"], tokens, policy)
         if media is not None:
             m = media.shape[1]
             x = torch.cat([media.to(x.dtype), x[:, m:]], dim=1)
         return x
 
     def encode(self, params, encoder_tokens, media=None, *,
-               attention=_plain_attention, remat: bool = False):
+               attention=_plain_attention, remat: bool = False,
+               policy: ShardingPolicy = NO_POLICY):
         """The encoder's output (B, S_enc, D): embedded tokens (and media),
         non-causal self-attention layers, the encoder's final norm
         (``transformer.py:360-365``)."""
-        x = self._embed_with_media(params, encoder_tokens, media)
+        x = self._embed_with_media(params, encoder_tokens, media, policy)
         x, _, _ = self._run_stack(self.enc_plan,
                                   params["encoder"]["segments"], x,
                                   attention=attention, collect=False,
-                                  causal=False, remat=remat)
+                                  causal=False, remat=remat, policy=policy)
         return rms_norm(params["encoder"]["final_norm"], x,
                         self.cfg.norm_eps)
 
     def _decoder_input(self, params, tokens, media, encoder_tokens,
-                       attention, remat: bool = False):
+                       attention, remat: bool = False, policy=NO_POLICY):
         """(embedded decoder input, encoder output or None): media go to
         the encoder of an audio model and to the decoder otherwise
         (``transformer.py:372-378``)."""
@@ -447,47 +485,55 @@ class Model:
             audio = self.cfg.frontend == "audio"
             enc_out = self.encode(params, encoder_tokens,
                                   media if audio else None,
-                                  attention=attention, remat=remat)
+                                  attention=attention, remat=remat,
+                                  policy=policy)
             media = None if audio else media
-        return self._embed_with_media(params, tokens, media), enc_out
+        return self._embed_with_media(params, tokens, media, policy), enc_out
 
     def _forward(self, params, tokens, media, encoder_tokens, *, scan,
-                 remat: bool):
+                 remat: bool, policy=NO_POLICY):
         """The body of :meth:`forward` and :meth:`loss`: logits and aux."""
         x, enc_out = self._decoder_input(params, tokens, media,
                                          encoder_tokens, _plain_attention,
-                                         remat)
+                                         remat, policy)
         x, aux, _ = self._run_stack(self.plan, params["segments"], x,
                                     attention=_plain_attention,
                                     collect=False, enc_out=enc_out,
-                                    scan=scan, remat=remat)
-        return self._logits(params, x), aux
+                                    scan=scan, remat=remat, policy=policy)
+        return self._logits(params, x, policy), aux
 
     @torch.no_grad()
-    def forward(self, params, tokens, *, media=None, encoder_tokens=None):
+    def forward(self, params, tokens, *, media=None, encoder_tokens=None,
+                policy: ShardingPolicy = NO_POLICY):
         """Teacher-forced logits (B, S, V) and the MoE aux loss summed over
         the MoE layers (zero for other plans), as the reference returns
         them (``transformer.py:368-385``). ``media``: (B, M, D) embeddings
         in place of the first M positions; ``encoder_tokens``: (B, S_enc)
         the encoder's input of an encoder-decoder model. Attention is the
         plain ``blockwise_attention`` on any device; the SSM heads take the
-        ``ssd_scan`` kernel on CUDA."""
-        return self._forward(params, tokens, media, encoder_tokens,
-                             scan=ssd_scan, remat=False)
+        ``ssd_scan`` kernel on CUDA, except under a mesh policy (DTensor
+        parameters and inputs), which runs the plain scan."""
+        with policy.scope():
+            return self._forward(params, tokens, media, encoder_tokens,
+                                 scan=_scan(policy), remat=False,
+                                 policy=policy)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, policy: ShardingPolicy = NO_POLICY):
         """The training loss (``transformer.py:387-393``): mean next-token
         cross-entropy of ``batch["tokens"]`` against ``batch["labels"]``
         shifted by one, plus 0.01 x the MoE aux loss. ``batch`` may carry
         ``media`` and ``encoder_tokens`` as :meth:`forward` takes them. No
-        kernel runs: plain attention and :func:`ssm.ssd_chunked`."""
-        logits, aux = self._forward(
-            params, batch["tokens"], batch.get("media"),
-            batch.get("encoder_tokens"), scan=ssm_mod.ssd_chunked,
-            remat=self.remat)
-        ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
-                           self.cfg.vocab_size)
-        return ce + 0.01 * aux
+        kernel runs: plain attention and :func:`ssm.ssd_chunked`. Under a
+        mesh policy the caller runs the backward in ``policy.scope()``
+        too (``training.train_loop.make_train_step`` does)."""
+        with policy.scope():
+            logits, aux = self._forward(
+                params, batch["tokens"], batch.get("media"),
+                batch.get("encoder_tokens"), scan=ssm_mod.ssd_chunked,
+                remat=self.remat, policy=policy)
+            ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                               self.cfg.vocab_size, policy)
+            return ce + 0.01 * aux
 
     def init_cache(self, batch: int, seq_len: int, *, device="cuda",
                    enc_len: int = 0):
@@ -503,7 +549,8 @@ class Model:
     @torch.no_grad()
     def prefill(self, params, tokens, *, seq_capacity: int, media=None,
                 encoder_tokens=None, last_idx: Optional[torch.Tensor] = None,
-                return_raw_kv: bool = False):
+                return_raw_kv: bool = False,
+                policy: ShardingPolicy = NO_POLICY):
         """Full prompt pass (``transformer.py:403-433``). Returns the
         logits (B, V) at ``last_idx`` (default the last position) and the
         decode caches for up to ``seq_capacity`` positions, ring buffers
@@ -512,17 +559,31 @@ class Model:
         whole prompt instead. ``media`` and ``encoder_tokens`` as in
         :meth:`forward`. On CUDA the attention (the encoder's, the
         decoder's self- and cross-attention) launches ``flash_prefill``
-        and the SSM heads ``ssd_scan``."""
+        and the SSM heads ``ssd_scan``; under a mesh policy the plain
+        versions run (a kernel wrapper refuses a DTensor)."""
+        with policy.scope():
+            return self._prefill(params, tokens, seq_capacity, media,
+                                 encoder_tokens, last_idx, return_raw_kv,
+                                 policy)
+
+    def _prefill(self, params, tokens, seq_capacity, media, encoder_tokens,
+                 last_idx, return_raw_kv, policy):
         b, s = tokens.shape
+        attention = _kernel_attention if policy.kernels \
+            else _plain_attention
         x, enc_out = self._decoder_input(params, tokens, media,
-                                         encoder_tokens, _kernel_attention)
+                                         encoder_tokens, attention,
+                                         policy=policy)
         x, _, seeds = self._run_stack(self.plan, params["segments"], x,
-                                      attention=_kernel_attention,
-                                      collect=True, enc_out=enc_out)
+                                      attention=attention, collect=True,
+                                      enc_out=enc_out, scan=_scan(policy),
+                                      policy=policy)
         if last_idx is None:
-            last_idx = torch.full((b,), s - 1, device=tokens.device)
-        last_h = x[torch.arange(b, device=x.device), last_idx]
-        logits = self._logits(params, last_h[:, None, :])[:, 0]
+            last_h = x[:, -1]
+        else:
+            last_h = x.gather(1, last_idx.long()[:, None, None].expand(
+                b, 1, x.shape[-1]))[:, 0]
+        logits = self._logits(params, last_h[:, None, :], policy)[:, 0]
         if return_raw_kv:
             return logits, seeds
         return logits, self._seed_caches(seeds, b, s, seq_capacity,
@@ -569,22 +630,26 @@ class Model:
         return (kvc, seed[1]) if hybrid else kvc
 
     @torch.no_grad()
-    def decode_step(self, params, tokens, pos, caches):
+    def decode_step(self, params, tokens, pos, caches, *,
+                    policy: ShardingPolicy = NO_POLICY):
         """tokens: (B, 1); pos: (B,) absolute positions. Returns the logits
         (B, V) and new caches (``transformer.py:483-508``); the input
         caches are not changed."""
         cfg = self.cfg
-        x = embed(params["embed"], tokens)
-        new_caches = []
-        for seg, p_seg, cache in zip(self.plan, params["segments"], caches):
-            if seg.n == 1:
-                x, c = _layer_decode(cfg, seg, p_seg, x, pos, cache)
-                new_caches.append(c)
-                continue
-            per_layer = []
-            for j in range(seg.n):
-                x, c = _layer_decode(cfg, seg, layer_params(p_seg, j), x, pos,
-                                     _tree_index(cache, j))
-                per_layer.append(c)
-            new_caches.append(_tree_stack(per_layer))
-        return self._logits(params, x)[:, 0], new_caches
+        with policy.scope():
+            x = embed(params["embed"], tokens, policy)
+            new_caches = []
+            for seg, p_seg, cache in zip(self.plan, params["segments"],
+                                         caches):
+                if seg.n == 1:
+                    x, c = _layer_decode(cfg, seg, p_seg, x, pos, cache,
+                                         policy)
+                    new_caches.append(c)
+                    continue
+                per_layer = []
+                for j in range(seg.n):
+                    x, c = _layer_decode(cfg, seg, layer_params(p_seg, j), x,
+                                         pos, _tree_index(cache, j), policy)
+                    per_layer.append(c)
+                new_caches.append(_tree_stack(per_layer))
+            return self._logits(params, x, policy)[:, 0], new_caches

@@ -11,6 +11,11 @@ msgpack itself is not a dependency of the port: :func:`packb` /
 :func:`unpackb` encode and decode the subset the reference writes (maps,
 arrays, str, bin and non-negative ints), each in the smallest form, as
 ``msgpack.packb(..., use_bin_type=True)`` chooses.
+
+A tree of DTensors (a mesh's parameters) is saved whole: every rank
+gathers each leaf and rank 0 writes the same bytes as one device would.
+:func:`restore` lays a leaf out as the DTensor in its place in ``like``
+is, each rank keeping its slice.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.training.tree import leaves, unflatten
 
@@ -160,13 +167,18 @@ def save(path: str, step: int, tree: Any) -> str:
     """Write ``tree``'s leaves as step ``step`` under ``path``; returns the
     step's directory."""
     d = os.path.join(path, f"step_{step:08d}")
-    os.makedirs(d, exist_ok=True)
-    flat = leaves(tree)
-    payload = packb({"leaves": [_pack_leaf(t) for t in flat]})
-    with open(os.path.join(d, "ckpt.msgpack"), "wb") as f:
-        f.write(payload)
-    with open(os.path.join(d, "manifest.json"), "w") as f:
-        json.dump({"step": step, "n_leaves": len(flat)}, f)
+    flat = [t.full_tensor() if isinstance(t, DTensor) else t
+            for t in leaves(tree)]
+    ranks = dist.is_initialized()
+    if not ranks or dist.get_rank() == 0:
+        os.makedirs(d, exist_ok=True)
+        payload = packb({"leaves": [_pack_leaf(t) for t in flat]})
+        with open(os.path.join(d, "ckpt.msgpack"), "wb") as f:
+            f.write(payload)
+        with open(os.path.join(d, "manifest.json"), "w") as f:
+            json.dump({"step": step, "n_leaves": len(flat)}, f)
+    if ranks:
+        dist.barrier()  # no rank reads it before it is whole
     return d
 
 
@@ -181,7 +193,8 @@ def latest_step(path: str) -> Optional[int]:
 
 def restore(path: str, step: int, like: Any) -> Any:
     """Step ``step`` under ``path`` as a tree of ``like``'s structure, each
-    leaf on the device of ``like``'s leaf in its place."""
+    leaf on the device of ``like``'s leaf in its place (a DTensor leaf's
+    mesh and placements)."""
     d = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(d, "ckpt.msgpack"), "rb") as f:
         payload = unpackb(f.read())
@@ -190,5 +203,11 @@ def restore(path: str, step: int, like: Any) -> Any:
         raise ValueError(f"restore: the checkpoint holds "
                          f"{len(payload['leaves'])} leaves, the tree "
                          f"{len(like_leaves)}")
-    return unflatten(like, [_unpack_leaf(p, t.device) for p, t in
-                            zip(payload["leaves"], like_leaves)])
+    out = []
+    for p, t in zip(payload["leaves"], like_leaves):
+        leaf = _unpack_leaf(p, t.device)
+        if isinstance(t, DTensor):
+            from repro_torch.launch.sharding import shard_tensor
+            leaf = shard_tensor(leaf, t.device_mesh, t.placements)
+        out.append(leaf)
+    return unflatten(like, out)

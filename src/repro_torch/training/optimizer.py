@@ -11,6 +11,11 @@ does on the same tree. :func:`apply` updates parameters and moments in
 place (the reference's launcher donates both), in slices of
 ``UPDATE_CHUNK`` elements so that the float32 temporaries of a large bf16
 leaf stay small.
+
+DTensor leaves (a mesh's parameters) update shard by shard: each
+gradient is first laid out as its parameter is (a partial sum is
+reduced), the clip reads the *global* norm, one number on every rank,
+and the decay rule reads the leaf's global rank.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.training.tree import leaves, tree_map
 
@@ -63,21 +69,40 @@ def schedule(cfg: OptConfig, step):
 
 
 def init(params) -> OptState:
-    """Zero float32 moments beside every leaf, on its device; step 0."""
+    """Zero float32 moments beside every leaf, on its device (a DTensor
+    leaf's with its placements); step 0."""
     first = leaves(params)[0]
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
-        mu=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params),
-        nu=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params))
+        mu=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params),
+        nu=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params))
+
+
+def _whole(t):
+    """A replicated DTensor's value as a plain tensor."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, summed over
-    the leaves in the reference's order (``optimizer.py:50-53``)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves(tree)))
+    the leaves in the reference's order (``optimizer.py:50-53``); over
+    DTensors the global norm, as a plain tensor on every rank."""
+    return _whole(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                 for g in leaves(tree))))
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like(g, p):
+    """``g`` laid out as ``p`` is (a DTensor gradient's partial sums
+    reduced)."""
+    if isinstance(p, DTensor) and list(g.placements) != list(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @torch.no_grad()
@@ -86,6 +111,7 @@ def apply(cfg: OptConfig, params, grads, state: OptState):
     decoupled weight decay on leaves of two or more dimensions. Updates
     the leaves of ``params``, ``state.mu`` and ``state.nu`` in place and
     returns (params, the new state, {"grad_norm", "lr"})."""
+    grads = [_like(g, p) for g, p in zip(leaves(grads), leaves(params))]
     gnorm = global_norm(grads)
     dev = gnorm.device
     # a Python number over a tensor would take the reciprocal first
@@ -96,9 +122,10 @@ def apply(cfg: OptConfig, params, grads, state: OptState):
     stepf = step.float()
     b1c = 1 - torch.pow(_f32(cfg.b1, dev), stepf)
     b2c = 1 - torch.pow(_f32(cfg.b2, dev), stepf)
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu),
+    for p, g, m, v in zip(leaves(params), grads, leaves(state.mu),
                           leaves(state.nu)):
         decay = p.dim() >= 2  # the stored leaf's rank, layer axis included
+        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         pf, gf, mf, vf = p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)
         for i in range(0, pf.numel(), UPDATE_CHUNK):
             sl = slice(i, i + UPDATE_CHUNK)

@@ -10,10 +10,12 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.bridge import init_params
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import NO_POLICY, ShardingPolicy
 from repro_torch.models.transformer import Model
 from repro_torch.training import checkpoint, optimizer
 from repro_torch.training.data import DataConfig, SyntheticCorpus
@@ -36,25 +38,32 @@ def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def make_train_step(model: Model, opt_cfg: optimizer.OptConfig) -> Callable:
+def make_train_step(model: Model, opt_cfg: optimizer.OptConfig,
+                    policy: ShardingPolicy = NO_POLICY) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params, state,
     {"loss", "grad_norm", "lr"})``: ``model.loss`` and its gradient with
     respect to every leaf of ``params`` (``loss.backward()`` on detached
     copies of the leaves, so the caller's tensors never require grad), then
     :func:`optimizer.apply`, which updates ``params`` and ``opt_state`` in
-    place. Metrics are 0-dim tensors on the parameters' device."""
+    place. Metrics are 0-dim tensors on the parameters' device. Under a
+    mesh ``policy`` (DTensor parameters and batch) every rank calls it;
+    the loss is the global one, a plain tensor on every rank."""
 
     def train_step(params, opt_state, batch):
-        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
-        loss = model.loss(unflatten(params, flat), batch)
-        loss.backward()
-        grads = unflatten(params, [
-            p.grad if p.grad is not None else torch.zeros_like(p)
-            for p in flat])
-        del flat
-        params, opt_state, m = optimizer.apply(opt_cfg, params, grads,
-                                               opt_state)
-        return params, opt_state, {"loss": loss.detach(), **m}
+        with policy.scope():
+            flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+            loss = model.loss(unflatten(params, flat), batch, policy=policy)
+            loss.backward()
+            grads = unflatten(params, [
+                p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in flat])
+            del flat
+            params, opt_state, m = optimizer.apply(opt_cfg, params, grads,
+                                                   opt_state)
+        loss = loss.detach()
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
+        return params, opt_state, {"loss": loss, **m}
 
     return train_step
 

@@ -1325,3 +1325,91 @@ def test_cuda_train_step_matches_cpu_and_launches_no_kernel(cuda, arch):
         far += int((d > 0.1 * lr).sum())
         total += d.numel()
     assert far <= 0.01 * total, (far, total)
+
+
+# -- the mesh on one card: a one-rank NCCL group ------------------------------
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL group and its (1, 1) ``("data", "model")`` mesh;
+    the group is destroyed after."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    init_distributed(cuda)
+    try:
+        yield make_host_mesh(1, device=cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cuda_one_rank_mesh_train_step_equals_plain(nccl_mesh):
+    """Smoke danube in float32 on the card: one ``make_train_step`` under a
+    ``MeshPolicy`` with DTensor parameters and batch on the one-rank NCCL
+    mesh against the plain step from the same weights: loss and grad_norm
+    within 1e-6 relative (one rank splits no sum), every updated parameter
+    within 1e-6 of the largest; no kernel launches."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import optimizer
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.tree import leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(smoke_config("h2o-danube-1.8b"),
+                              dtype="float32")
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))
+                            .astype(np.int32)).to(dev)
+    batch = {"tokens": toks, "labels": toks}
+    ocfg = optimizer.OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    plain = init_params(cfg, seed=2, device=dev)
+    sharded = shd.distribute(tree_map(lambda t: t.clone(), plain),
+                             shd.param_specs(plain, nccl_mesh, cfg),
+                             nccl_mesh)
+    counts = (flash_prefill.launches, paged_attention.launches,
+              ssd_scan.launches)
+    plain, _, pm = make_train_step(Model(cfg), ocfg)(
+        plain, optimizer.init(plain), batch)
+    policy = shd.MeshPolicy(nccl_mesh, cfg)
+    sharded, _, sm = make_train_step(Model(cfg), ocfg, policy)(
+        sharded, optimizer.init(sharded),
+        shd.distribute(batch, shd.batch_specs(batch, nccl_mesh, cfg),
+                       nccl_mesh))
+    torch.cuda.synchronize()
+    assert (flash_prefill.launches, paged_attention.launches,
+            ssd_scan.launches) == counts
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(sm[k]), float(pm[k]), rtol=1e-6)
+    for s, p in zip(leaves(sharded), leaves(plain)):
+        s = s.full_tensor()
+        assert s.shape == p.shape
+        assert float((s - p).abs().max()) <= 1e-6 * max(
+            float(p.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+def test_cuda_dist_attention_on_one_rank_mesh(nccl_mesh):
+    """``dist_attention`` on the one-rank NCCL mesh against
+    ``dist_attention_ref`` (float32 on the same bf16 inputs, 4096 keys,
+    lengths 1 / 100 / 4096 / 2049): within 1e-4."""
+    from repro_torch.core.distkv.dist_attention import (dist_attention,
+                                                        dist_attention_ref)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(6)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+
+    q, k, v = t(4, 32, 128), t(4, 4096, 8, 128), t(4, 4096, 8, 128)
+    lens = torch.tensor([1, 100, 4096, 2049], dtype=torch.int32, device=dev)
+    got = dist_attention(nccl_mesh, q, k, v, lens).to_local()
+    want = dist_attention_ref(q, k, v, lens)
+    assert float((got - want).abs().max()) <= 1e-4

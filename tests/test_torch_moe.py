@@ -104,6 +104,47 @@ def test_moe_forward_drops_past_capacity(top_k, dtype):
     _check_moe(*case)
 
 
+class _Groups:
+    """A policy of ``g`` MoE groups and nothing else, for either package
+    (no ``moe_apply``: the grouped dispatch runs)."""
+
+    def __init__(self, g):
+        self.moe_groups = g
+
+    def act(self, x, kind):
+        return x
+
+    def param(self, w, kind):
+        return w
+
+
+class _PortGroups(moe.ShardingPolicy):
+    def __init__(self, g):
+        self.moe_groups = g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("groups", [1, 2, 3, 5])
+def test_grouped_moe_forward_matches_jax(groups, dtype):
+    """GShard's grouped dispatch at G groups (a mesh's data shards) against
+    the JAX ``moe_forward`` at the same G, at capacity factor 0.5: each
+    group fills its own capacity, so drops differ from one group's (G 2
+    checked to differ); G 5 does not divide the 48 tokens and falls back
+    to one group in both."""
+    jcfg, p, jx, tcfg, tp, tx = _moe_case(dtype, seed=2, moe_top_k=2,
+                                          capacity_factor=0.5)
+    want, want_aux = jmoe.moe_forward(jcfg, p, jx, policy=_Groups(groups),
+                                      return_aux=True)
+    got, aux = moe.moe_forward(tcfg, tp, tx, policy=_PortGroups(groups),
+                               return_aux=True)
+    np.testing.assert_allclose(_np(got.float()), _np(want),
+                               **TOL[jcfg.dtype])
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=2e-5)
+    if groups == 2:
+        one = moe.moe_forward(tcfg, tp, tx)
+        assert not torch.equal(one, got)
+
+
 @pytest.mark.parametrize("top_k", [1, 2])
 def test_moe_forward_breaks_ties_by_index(top_k):
     """Router columns 1-3 built equal, so those experts' probabilities tie

@@ -433,11 +433,17 @@ def test_train_launcher_reduced_on_cpu(tmp_path, capsys):
         jax.tree.map(lambda a: (a.shape, a.dtype), {"params": jp})
 
 
-@pytest.mark.parametrize("flags", [["--model-parallel", "2"],
+@pytest.mark.parametrize("flags", [["--production-mesh",
+                                    "--model-parallel", "2"],
                                    ["--production-mesh"]])
 def test_train_launcher_refuses_sharding(flags):
-    with pytest.raises(NotImplementedError, match="sharding"):
+    """The production mesh needs 256 ranks; one rank is refused with the
+    world size it needs (``--model-parallel`` alone runs: it falls back
+    to 1 where it does not divide, ``tests/test_torch_sharding.py``)."""
+    import torch.distributed as dist
+    with pytest.raises(ValueError, match="world size of 256"):
         train_launcher.main(["--reduced", "--device", "cpu", *flags])
+    assert not dist.is_initialized()
 
 
 # -- the kernel wrappers refuse autograd --------------------------------------
@@ -486,3 +492,32 @@ def test_kernel_wrappers_refuse_autograd(name):
     with torch.no_grad():
         fn(arg.clone().requires_grad_(True))
     fn(arg)
+
+
+# -- examples/torch_train_small.py ---------------------------------------------
+
+def test_train_small_example_at_smoke_size(tmp_path):
+    """The port's training example, shrunk (``--smoke``: 2 layers, d_model
+    128) on the CPU for 6 steps: finite losses, a checkpoint at step 4
+    (every steps // 3) and one resumed step from it; its full-size model
+    is the reference example's ~100M parameters."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "torch_train_small.py")
+    spec = importlib.util.spec_from_file_location("torch_train_small", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    out = ex.main(["--smoke", "--device", "cpu", "--steps", "6",
+                   "--ckpt-dir", str(tmp_path)])
+    assert out["latest"] == 4
+    assert all(math.isfinite(x) for _, x in out["losses"])
+    assert math.isfinite(out["resumed_loss"])
+    from repro.configs import get_config as jget
+    full = ex.config(smoke=False)
+    ref = dataclasses.replace(
+        jget("h2o-danube-1.8b"), num_layers=8, d_model=768, num_heads=12,
+        num_kv_heads=4, head_dim=64, d_ff=2048, vocab_size=32000,
+        sliding_window=512)
+    assert full.n_params() == ref.n_params()
+    assert 90e6 < full.n_params() < 130e6
