@@ -51,7 +51,9 @@ or the JAX package) and:
    ``Model.forward`` over prompt + generated tokens;
 6. slice-1 phase: danube in float32 on what the serve phase bypasses: a
    prefix-cache engine resuming mid-page, whose greedy tokens must equal a
-   cold engine's; a context past the 4096-token window, through both
+   cold engine's, and whose ``prefix_cache_stats()`` must count as hits
+   the tokens its requests were served from cache (no more than it looked
+   up), its ``kv_utilization()`` in (0, 1] after the run; a context past the 4096-token window, through both
    kernels; a pool too small for its requests, which forces preemption
    and recompute; the last two against ``Model.forward``. Then the host
    tier on the same weights and preemption traffic, with 128 pinned host
@@ -208,7 +210,15 @@ or the JAX package) and:
    collective bytes by kind, the three roofline terms (the H100 data
    sheet's, not measured), the bottleneck, ``useful_flop_frac`` and
    memory per rank printed;
-13. times each kernel at its path's shapes beside its plain version, one
+13. examples phase: the five ``examples/torch_*.py`` (chain selection,
+   the distributed KV cluster, the quickstart, continuous batching, the
+   shared prefix) through their ``main(device="cuda")`` in this process,
+   at the reference examples' sizes on smoke h2o-danube-1.8b, with their
+   own assertions; each one's wall seconds and kernel launches, counted
+   from 0 around it. Each of the three that serve must launch
+   ``paged_attention`` and ``flash_prefill``; the DistAttention demo runs
+   on the mesh phase's one-rank NCCL group, its merge error at most 1e-5;
+14. times each kernel at its path's shapes beside its plain version, one
    PyTorch library call computing the same function where there is one,
    and the least time the card could take (its bound), and prints them as
    one JSON line; ``flash_prefill``'s engine form is also timed at each of
@@ -272,6 +282,14 @@ KERNELS = ("paged_attention", "flash_prefill", "ssd_scan")
 
 # danube decode-attention widths
 H, HKV, DH, PS = 32, 8, 80, 16
+# the examples' engines: smoke danube's (H, Hkv, Dh) and sliding window, on
+# pages of 8. Decode contexts up to ~40 tokens, one past the window and one
+# over several blocks; prefill chunks (length, start) of a cold prompt, a
+# suffix after the 16-token cached system prompt, a recompute after
+# preemption, and one past the window
+EXAMPLE_WIDTHS, EXAMPLE_PS, EXAMPLE_WINDOW = (4, 4, 64), 8, 64
+EXAMPLE_LENS = [0, 1, 7, 8, 9, 22, 34, 100]
+EXAMPLE_CHUNKS = [(8, 0), (22, 0), (6, 16), (34, 0), (40, 60)]
 
 SERVE_PROMPTS = [64, 1024, 333, 512, 777, 128, 900, 200]
 SERVE_NEW = 32
@@ -495,17 +513,17 @@ def cuda_ms(fn, iters: int, warmup: int = 3, bursts: int = 5):
 # -- kernel phase ---------------------------------------------------------------
 
 def paged_inputs(gen, dev, dtype, lens, layers=1, extra_pages=3,
-                 page_major=False, widths=(H, HKV, DH)):
+                 page_major=False, widths=(H, HKV, DH), page_size=PS):
     """Pools of ``layers`` layers, a (B, n) block table of distinct pages
     in random order, q. ``page_major`` lays the pool out as (P, L, ...),
     so a layer slice has a page stride of L pages. ``widths``: (H, Hkv,
     Dh), danube's by default."""
     h, hkv, dh = widths
     b = len(lens)
-    n = max(1, max(-(-x // PS) for x in lens))
+    n = max(1, max(-(-x // page_size) for x in lens))
     npages = b * n + extra_pages
-    shape = (npages, layers, PS, hkv, dh) if page_major else \
-        (layers, npages, PS, hkv, dh)
+    shape = (npages, layers, page_size, hkv, dh) if page_major else \
+        (layers, npages, page_size, hkv, dh)
     kp = torch.randn(shape, generator=gen, device=dev).to(dtype)
     vp = torch.randn(shape, generator=gen, device=dev).to(dtype)
     perm = torch.randperm(npages, generator=gen, device=dev)[:b * n]
@@ -578,6 +596,35 @@ def kernel_phase(dev):
                               context_lens=lens, max_abs_err=err,
                               max_abs_ref=wo.float().abs().max().item()))
             log(f"kernel phase: paged_attention {cases[-1]} ok")
+    # the examples' decode: smoke danube's widths on pages of 8, at their
+    # contexts and at one over several blocks
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (None, EXAMPLE_WINDOW):
+            lens = EXAMPLE_LENS + [SPLIT_TOKENS + 3]
+            q, k, v, bt, ctx = paged_inputs(gen, dev, dtype, lens,
+                                            layers=2, widths=EXAMPLE_WIDTHS,
+                                            page_size=EXAMPLE_PS)
+            k, v = k[1], v[1]
+            out, m, l = paged_attention(q, k, v, bt, ctx,
+                                        page_size=EXAMPLE_PS, window=window,
+                                        return_partials=True)
+            torch.cuda.synchronize()
+            wo, wm, wl = ref.paged_attention(q, k, v, bt, ctx,
+                                             page_size=EXAMPLE_PS,
+                                             window=window,
+                                             return_partials=True)
+            torch.testing.assert_close(out.float(), wo.float(), **TOL[dtype])
+            torch.testing.assert_close(m, wm, rtol=2e-5, atol=2e-5)
+            torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-4)
+            empty = ctx == 0
+            assert (out[empty] == 0).all() and (l[empty] == 0).all()
+            cases.append(dict(dtype=str(dtype).split(".")[-1],
+                              window=window, layout="examples",
+                              widths=list(EXAMPLE_WIDTHS),
+                              page_size=EXAMPLE_PS, context_lens=lens,
+                              max_abs_err=(out.float() - wo.float()).abs()
+                              .max().item()))
+            log(f"kernel phase: paged_attention {cases[-1]} ok")
     return cases
 
 
@@ -606,29 +653,32 @@ def flash_phase(dev):
                                   out.float() - want.float()).abs().max()
                               .item()))
             log(f"kernel phase: flash_prefill {cases[-1]} ok")
-        for s, q_offset in ENGINE_CHUNKS:
-            for window in (None, 24):
-                ctx = q_offset + s
-                # a 3-layer pool with room for the context in random pages
-                q, kp, vp, bt, _ = paged_inputs(
-                    gen, dev, dtype, [ctx], layers=3)
-                q = torch.randn((1, s, H, DH), generator=gen,
-                                device=dev).to(dtype)
-                pages = bt[0]
-                out = prefill_attention_paged(q, kp[1], vp[1], pages,
-                                              q_offset=q_offset,
-                                              window=window)
-                torch.cuda.synchronize()
-                want = ref.prefill_attention_paged(
-                    q, kp[1], vp[1], pages, q_offset=q_offset,
-                    window=window)
-                torch.testing.assert_close(out.float(), want.float(),
-                                           **TOL_ENGINE)
-                cases.append(dict(form="engine", dtype=str(dtype)[6:],
-                                  chunk=s, q_offset=q_offset, window=window,
-                                  max_abs_err=(out.float() - want.float())
-                                  .abs().max().item()))
-                log(f"kernel phase: flash_prefill {cases[-1]} ok")
+        # danube's chunks on pages of 16, then the examples' on pages of 8
+        engine_cases = [(c, w, (H, HKV, DH), PS) for c in ENGINE_CHUNKS
+                        for w in (None, 24)] + [
+            (c, w, EXAMPLE_WIDTHS, EXAMPLE_PS) for c in EXAMPLE_CHUNKS
+            for w in (None, EXAMPLE_WINDOW)]
+        for (s, q_offset), window, widths, ps in engine_cases:
+            ctx = q_offset + s
+            # a 3-layer pool with room for the context in random pages
+            q, kp, vp, bt, _ = paged_inputs(gen, dev, dtype, [ctx], layers=3,
+                                            widths=widths, page_size=ps)
+            q = torch.randn((1, s, widths[0], widths[2]), generator=gen,
+                            device=dev).to(dtype)
+            pages = bt[0]
+            out = prefill_attention_paged(q, kp[1], vp[1], pages,
+                                          q_offset=q_offset, window=window)
+            torch.cuda.synchronize()
+            want = ref.prefill_attention_paged(
+                q, kp[1], vp[1], pages, q_offset=q_offset, window=window)
+            torch.testing.assert_close(out.float(), want.float(),
+                                       **TOL_ENGINE)
+            cases.append(dict(form="engine", dtype=str(dtype)[6:],
+                              chunk=s, q_offset=q_offset, window=window,
+                              widths=list(widths), page_size=ps,
+                              max_abs_err=(out.float() - want.float())
+                              .abs().max().item()))
+            log(f"kernel phase: flash_prefill {cases[-1]} ok")
     return cases
 
 
@@ -1326,6 +1376,8 @@ def slice1_phase(dev, seed: int):
         svc = LLMService(engine)
         runs[cached] = [svc.generate([p], SamplingParams(
             max_new_tokens=ORACLE_NEW))[0] for p in prompts]
+        if cached:
+            cache_stats = check_cache_stats(engine, runs[True])
         del engine, svc
     hit = runs[True][1].metrics.num_cached_tokens
     assert hit == PREFIX_COMMON and hit % PS, \
@@ -1349,7 +1401,7 @@ def slice1_phase(dev, seed: int):
         f"greedy tokens {'equal' if same else 'differ at a near-tie'} "
         f"to a cold engine's")
     stats["prefix_cache"] = dict(cached_tokens=hit, equal_to_cold=same,
-                                 oracle=cold_check)
+                                 oracle=cold_check, stats=cache_stats)
     spill_prompt, spill_cold = prompts[1], runs[False][1]
 
     # a context past the window, in both kernels
@@ -1395,6 +1447,30 @@ def slice1_phase(dev, seed: int):
     torch.cuda.empty_cache()
     stats.update(phase_end("slice-1 phase", t0))
     return stats
+
+
+def check_cache_stats(engine, outs) -> dict:
+    """The prefix-cache engine's ``prefix_cache_stats()`` and
+    ``kv_utilization()`` after serving ``outs``: the hits are the served
+    requests' cached tokens, no more than the tokens looked up, and the
+    utilization lies in (0, 1]."""
+    st = engine.prefix_cache_stats()
+    kv = engine.kv_utilization()
+    served = sum(o.metrics.num_cached_tokens for o in outs)
+    if st["hit_tokens"] != served:
+        raise AssertionError(f"slice-1 phase: prefix_cache_stats hit_tokens "
+                             f"{st['hit_tokens']}, the requests' cached "
+                             f"tokens {served}")
+    if not st["lookup_tokens"] >= st["hit_tokens"]:
+        raise AssertionError(f"slice-1 phase: lookup_tokens "
+                             f"{st['lookup_tokens']} < hit_tokens "
+                             f"{st['hit_tokens']}")
+    if not 0 < kv <= 1:
+        raise AssertionError(f"slice-1 phase: kv_utilization {kv} after the "
+                             "run")
+    log(f"slice-1 phase: prefix_cache_stats {st}; kv_utilization {kv!r} "
+        "after the run")
+    return dict(st, kv_utilization=kv)
 
 
 # -- the host tier: swap-to-host preemption and prefix spill ------------------------
@@ -3421,7 +3497,9 @@ DRYRUN_CAP = 2  # count 2 and 4 layers a segment, extrapolate, as the
 def mesh_phase(dev, seed: int, plain: dict) -> dict:
     """The train launcher SPMD on a one-rank NCCL mesh against the train
     phase's plain run ``plain``; ``dist_attention`` on that mesh at a long
-    decode; the dry-run's three records. No kernel may launch."""
+    decode; the dry-run's three records. No kernel may launch. On success
+    the one-rank NCCL group stays: ``examples_phase`` must run next, and it
+    destroys the group."""
     import torch.distributed as dist
     from repro_torch.core.distkv.dist_attention import (dist_attention,
                                                         dist_attention_ref)
@@ -3486,8 +3564,9 @@ def mesh_phase(dev, seed: int, plain: dict) -> dict:
             f"{sh['h']}/{sh['hkv']} Dh {sh['dh']} bf16 ({kv_gb:.2f} GB of "
             f"K/V) on the one-rank mesh: max error {err:.2e} against "
             f"dist_attention_ref, {da_ms:.1f} ms (one call, host clock)")
-    finally:
+    except BaseException:
         dist.destroy_process_group()
+        raise
     del q, k, v, want_o, got_o
     gc.collect()
     torch.cuda.empty_cache()
@@ -3543,6 +3622,70 @@ def mesh_phase(dev, seed: int, plain: dict) -> dict:
                 dispatch_s=dispatch, dist_attention=dict(
                     max_err=err, ms=da_ms, **DIST_SHAPE),
                 dryrun=records, dryrun_s=dry_s)
+
+
+# -- the examples: examples/torch_*.py on the card ----------------------------
+
+EXAMPLES = ("torch_chain_nsga2", "torch_distributed_kv_cluster",
+            "torch_quickstart", "torch_serve_continuous_batching",
+            "torch_serve_shared_prefix")
+# the examples that serve on the paged engine: both attention kernels must
+# launch in each
+ENGINE_EXAMPLES = ("torch_quickstart", "torch_serve_continuous_batching",
+                   "torch_serve_shared_prefix")
+EXAMPLE_DIST_TOL = 1e-5  # float32 DistAttention against its oracle
+
+
+def examples_phase(dev) -> dict:
+    """The five examples' ``main(device="cuda")`` in this process, each at
+    the reference's sizes and traffic with its own assertions: wall seconds
+    and each kernel's launches, counted from 0 around each. The three that
+    serve must launch ``paged_attention`` and ``flash_prefill``; the
+    DistAttention demo runs on the mesh phase's one-rank NCCL group (kept
+    by ``init_distributed``), within EXAMPLE_DIST_TOL of its oracle. The
+    group is destroyed at the end."""
+    import importlib.util
+
+    import torch.distributed as dist
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    root = Path(__file__).resolve().parent / "examples"
+    runs = {}
+    try:
+        if not dist.is_initialized():
+            raise AssertionError("examples phase: the mesh phase's process "
+                                 "group is gone")
+        for name in EXAMPLES:
+            spec = importlib.util.spec_from_file_location(
+                name, root / f"{name}.py")
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            log(f"examples phase: {name}")
+            reset_launch_counts()
+            t0 = time.monotonic()
+            out = module.main(device="cuda")
+            torch.cuda.synchronize()
+            runs[name] = dict(seconds=time.monotonic() - t0,
+                              launches=launch_counts())
+            if name == "torch_distributed_kv_cluster":
+                err = out["dist_attention_err"]
+                if not math.isfinite(err) or err > EXAMPLE_DIST_TOL:
+                    raise AssertionError(f"examples phase: DistAttention "
+                                         f"max error {err} > "
+                                         f"{EXAMPLE_DIST_TOL}")
+                runs[name]["dist_attention_err"] = err
+            if name == "torch_serve_shared_prefix":
+                runs[name]["prefix_cache_stats"] = out["stats"]
+            del module, out
+            gc.collect()
+    finally:
+        dist.destroy_process_group()
+    for name in ENGINE_EXAMPLES:
+        n = runs[name]["launches"]
+        if not (n["paged_attention"] > 0 and n["flash_prefill"] > 0):
+            raise AssertionError(f"examples phase: {name} launched {n}")
+    return dict(phase_end("examples phase", t_phase), runs=runs)
 
 
 def attention_row(label: str, dev, gen, b: int, s: int, skv: int, widths,
@@ -4089,13 +4232,17 @@ def main() -> int:
     mla = mla_phases(dev, seed=11)
     train = train_phase(dev, seed=15)
     mesh = mesh_phase(dev, seed=16, plain=train["full"])
+    examples = examples_phase(dev)
+    example_launches = {k: sum(r["launches"][k] for r in
+                               examples["runs"].values()) for k in KERNELS}
     cluster = dense["cluster"]
     host_tiers = [slice1["host_tier"], dense["host_tier"]]
     sim = dense["sim"]
     paged, paged_shapes = timing_phase(
         dev, seed=2, launches=serve["launches"] + cluster["launches"]
         + sum(h["launches"] for h in host_tiers) + sim["launches"]
-        + internvl["serve"]["launches"])
+        + internvl["serve"]["launches"]
+        + example_launches["paged_attention"])
     flash, flash_shapes = flash_timing(
         dev, seed=5,
         launches=serve["prefill_launches"] + cluster["prefill_launches"]
@@ -4103,10 +4250,12 @@ def main() -> int:
         + sim["prefill_launches"] + hymba["launches"]["flash_prefill"]
         + seamless["launches"]["flash_prefill"]
         + internvl["launches"]["flash_prefill"]
-        + internvl["serve"]["prefill_launches"])
+        + internvl["serve"]["prefill_launches"]
+        + example_launches["flash_prefill"])
     ssd, ssd_shapes = ssd_timing(
         dev, seed=6,
-        launches=mamba["launches"] + hymba["launches"]["ssd_scan"])
+        launches=mamba["launches"] + hymba["launches"]["ssd_scan"]
+        + example_launches["ssd_scan"])
     hymba_attention, hymba_ssd = hymba_timing(dev, seed=7)
     # each kernel's entry also carries its time at hymba's prefill shape
     flash["at_hymba"] = dict(
@@ -4220,6 +4369,17 @@ def main() -> int:
         f"{run['peak_gib']:.2f} GiB; dist_attention max error "
         f"{mesh['dist_attention']['max_err']:.2e}; dry-run "
         f"{mesh['dryrun_s']:.1f} s; {mesh['seconds']:.1f} s")
+    pc = slice1["prefix_cache"]["stats"]
+    log(f"slice-1 phase on {card}: prefix-cache engine hit_tokens "
+        f"{pc['hit_tokens']}, lookup_tokens {pc['lookup_tokens']}, hit_rate "
+        f"{pc['hit_rate']!r}, cached_pages {pc['cached_pages']}, "
+        f"kv_utilization {pc['kv_utilization']!r} after the run")
+    log(f"examples phase on {card}: {examples['seconds']:.1f} s; " + "; ".join(
+        f"{name} {run['seconds']:.2f} s, paged_attention "
+        f"{run['launches']['paged_attention']}, flash_prefill "
+        f"{run['launches']['flash_prefill']}, ssd_scan "
+        f"{run['launches']['ssd_scan']}"
+        for name, run in examples["runs"].items()))
     log_timings(card, [(paged, paged_shapes), (flash, flash_shapes),
                        (ssd, ssd_shapes)])
     for arch, timed in gqa_timed.items():
@@ -4228,7 +4388,8 @@ def main() -> int:
     log("detail " + json.dumps(dict(
         card=card, serve=serve, oracle=oracle, slice1=slice1, mamba=mamba,
         hymba=hymba, seamless=seamless, internvl2=internvl, moe=moe,
-        dense=dense, mla=mla, train=train, mesh=mesh, kernel_cases=cases,
+        dense=dense, mla=mla, train=train, mesh=mesh, examples=examples,
+        kernel_cases=cases,
         timing=dict(paged_attention=paged_shapes,
                     flash_prefill=flash_shapes, ssd_scan=ssd_shapes,
                     gqa={arch: dict(paged_attention=dict(t[0][0], **t[0][1]),

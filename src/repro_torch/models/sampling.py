@@ -5,7 +5,9 @@ the logprobs match the reference. Sampled rows draw from a counter-based
 generator keyed by ``(seed, step, vocab index)``: a request's stream is
 deterministic per ``(seed, step)`` whatever batch or slot it runs in and on
 either device, but its bits are not JAX's threefry bits, so sampled tokens
-differ from the reference's.
+differ from the reference's. The scalar-parameter :func:`sample` draws
+from an explicit ``torch.Generator``: the reference's distribution, not its
+bits.
 """
 
 from __future__ import annotations
@@ -88,3 +90,21 @@ def sample_batch(logits, seeds, steps, temperature, top_k, top_p):
     logprobs = torch.gather(torch.log_softmax(logits, dim=-1), 1,
                             tokens.long()[:, None])[:, 0]
     return tokens, logprobs
+
+
+def sample(logits, generator, *, temperature: float = 1.0, top_k: int = 0):
+    """Scalar-parameter sampling (the reference's legacy path; the engine
+    uses :func:`sample_batch`). logits: (B, V); ``generator`` is a
+    ``torch.Generator`` on the logits' device, in place of the reference's
+    PRNG key. ``temperature <= 0`` is greedy. Otherwise the scaled logits
+    below the k-th largest are dropped (ties at the k-th value kept) and
+    one token a row is drawn from the softmax of the rest: the reference's
+    distribution, drawn with torch's generator rather than threefry."""
+    if temperature <= 0:
+        return greedy(logits)
+    logits = logits.float() / temperature
+    if top_k:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    return torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                             generator=generator)[:, 0].to(torch.int32)

@@ -1066,3 +1066,12 @@ class PagedEngine:
             if not self.has_work:
                 return
         raise RuntimeError("engine did not drain")
+
+    # -- stats ------------------------------------------------------------------
+    def kv_utilization(self) -> float:
+        return self.allocator.utilization(list(self.scheduler.tables.values()))
+
+    def prefix_cache_stats(self) -> Dict[str, float]:
+        if self.prefix_cache is None:
+            return {}
+        return self.prefix_cache.stats()

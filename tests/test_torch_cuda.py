@@ -1413,3 +1413,79 @@ def test_cuda_dist_attention_on_one_rank_mesh(nccl_mesh):
     got = dist_attention(nccl_mesh, q, k, v, lens).to_local()
     want = dist_attention_ref(q, k, v, lens)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_sample_draws_from_the_top_k_softmax(cuda):
+    """``sampling.sample`` on the card with a CUDA generator: greedy rows
+    equal the CPU's; draws lie in the top-k set, ties at the k-th value
+    kept and drawn; at temperature 0.7 the frequencies of 40,000 draws lie
+    within five binomial standard deviations (+1e-4) of softmax(logits /
+    T) over the filtered logits (``tests/test_torch_engine_stats.py``'s
+    bound on the CPU)."""
+    from repro_torch.models.sampling import sample
+
+    rng = np.random.default_rng(3)
+    x = np.round(rng.standard_normal((6, 40)) * 2).astype(np.float32)
+    x[0] = -4.0
+    x[0, :5] = 1.0  # 5 tokens tie at the 3rd value
+    xc = torch.from_numpy(x).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    assert torch.equal(sample(xc, gen, temperature=0.0).cpu(),
+                       sample(torch.from_numpy(x), None, temperature=0.0))
+    kth = np.sort(x, axis=1)[:, -3:-2]
+    allowed = x >= kth
+    rows = np.arange(6)
+    drawn = np.zeros_like(allowed)
+    for _ in range(300):
+        tok = sample(xc, gen, temperature=1.5, top_k=3).cpu().numpy()
+        assert allowed[rows, tok].all()
+        drawn[rows, tok] = True
+    assert (drawn[0] == allowed[0]).all()
+    t, n = 0.7, 40_000
+    z = torch.from_numpy(x[1]) / t
+    p = torch.softmax(z.masked_fill(z < torch.topk(z, 5).values[-1],
+                                    float("-inf")), 0).double().numpy()
+    tok = sample(xc[1:2].expand(n, -1).contiguous(), gen, temperature=t,
+                 top_k=5).cpu().numpy()
+    freq = np.bincount(tok, minlength=x.shape[1]) / n
+    assert (np.abs(freq - p) <= 5 * np.sqrt(p * (1 - p) / n) + 1e-4).all()
+
+
+@pytest.mark.gpu
+def test_cuda_engine_stats_equal_cpu_engine(cuda):
+    """``kv_utilization()`` and ``prefix_cache_stats()`` of a prefix-cache
+    engine on the card equal the CPU engine's after every step, on
+    ``tests/test_prefix_cache.py``'s 8 sessions over a 2-page system
+    prompt (smoke danube without its window, float32); the card's engine
+    launches both attention kernels."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.scheduling.request import Request
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+
+    cfg = dataclasses.replace(smoke_config("h2o-danube-1.8b"),
+                              dtype="float32", logits_fp32=True,
+                              sliding_window=None)
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, 512, 16).tolist()
+    prompts = [system + rng.integers(0, 512, 6).tolist() for _ in range(8)]
+    engines = [PagedEngine(cfg, _to(params, dev), EngineConfig(
+        num_pages=64, page_size=8, max_slots=4, enable_prefix_cache=True),
+        device=dev) for dev in ("cpu", cuda)]
+    before = (paged_attention.launches, flash_prefill.launches)
+    for i, p in enumerate(prompts):
+        for e in engines:
+            e.add_request(Request(i, 0.0, list(p), max_new_tokens=4))
+        while any(e.has_work for e in engines):
+            for e in engines:
+                e.step()
+            a, b = engines
+            assert b.kv_utilization() == a.kv_utilization()
+            assert b.prefix_cache_stats() == a.prefix_cache_stats()
+    assert engines[1].prefix_cache_stats()["hit_tokens"] == 7 * 16
+    assert paged_attention.launches > before[0]
+    assert flash_prefill.launches > before[1]

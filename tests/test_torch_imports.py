@@ -1,10 +1,10 @@
 """The port stands alone: no module of ``src/repro_torch/``, no
-``benchmarks/torch_*.py`` and not ``chip_smoke.py`` imports JAX or anything
-of the JAX package ``repro``, nor any package that the card's machine lacks
-(it has the standard library, torch, numpy, scipy, einops and triton: not
-msgpack, which the reference's checkpoint needs), and its entry points
-refuse to run on a machine without a GPU unless the caller asks for the
-CPU."""
+``benchmarks/torch_*.py``, no ``examples/torch_*.py`` and not
+``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``,
+nor any package that the card's machine lacks (it has the standard
+library, torch, numpy, scipy, einops and triton: not msgpack, which the
+reference's checkpoint needs), and its entry points refuse to run on a
+machine without a GPU unless the caller asks for the CPU."""
 
 import ast
 import dataclasses
@@ -17,6 +17,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     sorted((ROOT / "benchmarks").glob("torch_*.py")) + \
+    sorted((ROOT / "examples").glob("torch_*.py")) + \
     [ROOT / "chip_smoke.py"]
 
 
