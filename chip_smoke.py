@@ -302,6 +302,26 @@ NEAR_TIE = 2.0 ** -7  # of the largest |logit| (tests/test_engine.py)
 FLASH_SWEEP = [(1, 128, 4, 4, 64, True, None), (2, 256, 8, 2, 64, True, None),
                (2, 256, 8, 2, 64, True, 64), (1, 128, 4, 1, 32, False, None),
                (2, 192, 6, 2, 80, True, None)]
+# the contiguous entry beyond that sweep: b, s, skv, h, hkv, dh, causal,
+# window, K/V layout ("dense"; "head_slice": heads 1..Hkv of a tensor of
+# Hkv + 2 heads, which TMA reads; "offset_slice": columns 1..Dh of a
+# last dimension of Dh + 8, not 16-byte aligned, staged through registers)
+FLASH_CASES = [
+    (2, 300, 300, 10, 2, 64, True, 64, "dense"),      # G 5, hymba's group
+    (1, 200, 200, 12, 2, 128, True, None, "dense"),   # G 6, Dh 128
+    (1, 70, 70, 48, 1, 128, True, None, "dense"),     # G 48, Dh 128
+    (1, 257, 257, 4, 2, 32, True, None, "dense"),     # Dh 32, S % 128 != 0
+    (2, 150, 150, 8, 2, 80, True, 40, "dense"),       # Dh 80
+    (2, 100, 333, 8, 2, 64, False, None, "dense"),    # non-causal, Skv > S
+    (2, 300, 77, 10, 2, 80, False, None, "dense"),    # non-causal, Skv < S
+    (1, 256, 100, 4, 2, 64, True, 32, "dense"),       # rows 131.. see no key
+    (4, 200, 200, 10, 2, 64, True, None, "head_slice"),  # B 4
+    (2, 130, 130, 6, 3, 80, True, None, "offset_slice"),
+    # more items than SMs, the last round partial (the bf16 body is
+    # persistent): 172 items of 192 rows, 144 of 128
+    (2, 2048, 2048, 8, 2, 64, True, None, "dense"),
+    (1, 1500, 1500, 12, 2, 128, True, 256, "dense"),
+]
 # the engine form: (chunk length, chunk start); the serve phase's largest
 # chunk is 512 tokens, its longest context 1040
 ENGINE_CHUNKS = [(512, 0), (512, 512), (300, 37), (16, 1024)]
@@ -636,20 +656,45 @@ def flash_phase(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     cases = []
+    sweep = [(b, s, s, h, hkv, dh, causal, window, "dense")
+             for b, s, h, hkv, dh, causal, window in FLASH_SWEEP]
     for dtype in (torch.float32, torch.bfloat16):
-        for b, s, h, hkv, dh, causal, window in FLASH_SWEEP:
+        for b, s, skv, h, hkv, dh, causal, window, layout in \
+                sweep + FLASH_CASES:
             q = torch.randn((b, s, h, dh), generator=gen, device=dev)
-            k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev)
-                    for _ in range(2))
-            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            if layout == "head_slice":
+                k, v = (torch.randn((b, skv, hkv + 2, dh), generator=gen,
+                                    device=dev).to(dtype)[:, :, 1:hkv + 1]
+                        for _ in range(2))
+            elif layout == "offset_slice":
+                k, v = (torch.randn((b, skv, hkv, dh + 8), generator=gen,
+                                    device=dev).to(dtype)[..., 1:dh + 1]
+                        for _ in range(2))
+            else:
+                k, v = (torch.randn((b, skv, hkv, dh), generator=gen,
+                                    device=dev).to(dtype) for _ in range(2))
+            q = q.to(dtype)
+            before = flash_prefill.launches
             out = flash_prefill(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
+            assert flash_prefill.launches == before + 1
             want = ref.flash_prefill(q, k, v, causal=causal, window=window)
             torch.testing.assert_close(out.float(), want.float(),
                                        **TOL[dtype])
+            # positions that see no key return zeros
+            qpos = torch.arange(s, device=dev)[:, None]
+            kpos = torch.arange(skv, device=dev)[None]
+            seen = torch.ones((s, skv), dtype=torch.bool, device=dev)
+            if causal:
+                seen &= kpos <= qpos
+            if window is not None:
+                seen &= kpos > qpos - window
+            blind = ~seen.any(-1)
+            assert (out[:, blind] == 0).all()
             cases.append(dict(form="contiguous", dtype=str(dtype)[6:],
-                              shape=[b, s, h, hkv, dh], causal=causal,
-                              window=window, max_abs_err=(
+                              shape=[b, s, skv, h, hkv, dh], causal=causal,
+                              window=window, layout=layout,
+                              blind_rows=int(blind.sum()), max_abs_err=(
                                   out.float() - want.float()).abs().max()
                               .item()))
             log(f"kernel phase: flash_prefill {cases[-1]} ok")
@@ -3689,15 +3734,13 @@ def examples_phase(dev) -> dict:
 
 
 def attention_row(label: str, dev, gen, b: int, s: int, skv: int, widths,
-                  *, causal=True, window=None, contiguous=False):
+                  *, causal=True, window=None):
     """``prefill_attention`` as ``Model.prefill`` dispatches it (one launch
     per sequence): ``b`` x ``s`` queries over ``skv`` keys at ``widths``
-    (H, Hkv, Dh), bf16, against its plain version, and timed beside it,
+    (H, Hkv, Dh), bf16, against its plain version, and timed beside it and
     SDPA on the same inputs (an explicit mask with a window, else
-    ``is_causal``) and with ``contiguous`` the contiguous entry
-    (``flash_prefill``: the float32 CUDA-core body, one launch). Three
-    input sets, cycled, so that no call finds its inputs in the 50 MB L2.
-    Returns the row's detail dict."""
+    ``is_causal``). Three input sets, cycled, so that no call finds its
+    inputs in the 50 MB L2. Returns the row's detail dict."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_prefill import (flash_prefill,
@@ -3737,10 +3780,6 @@ def attention_row(label: str, dev, gen, b: int, s: int, skv: int, widths,
     library_ms, library_device_ms, _ = cuda_ms(
         lambda i: F.scaled_dot_product_attention(*lib[i % 3],
                                                  enable_gqa=True, **sdpa), 9)
-    extra = {}
-    if contiguous:
-        extra["contiguous_ms"], extra["contiguous_device_ms"], _ = cuda_ms(
-            lambda i: flash_prefill(*sets[i % 3], **kw), 6, warmup=1)
     flash_prefill.launches = before  # timing launches are not the path's
     pairs = int(mask.sum())  # of one sequence
     nbytes = 2 * b * s * h * dh * esz + 2 * b * skv * hkv * dh * esz
@@ -3752,16 +3791,77 @@ def attention_row(label: str, dev, gen, b: int, s: int, skv: int, widths,
                ms=ms, device_ms=device_ms, host_us=host_us,
                plain_ms=plain_ms, plain_device_ms=plain_device_ms,
                library_ms=library_ms, library_device_ms=library_device_ms,
-               **extra, valid_pairs=b * pairs, bytes=nbytes, flops=flops,
+               valid_pairs=b * pairs, bytes=nbytes, flops=flops,
                bound_ms=bound_ms, bound_by=bound_by)
     log(f"flash_prefill at {label} {row['shape']} (B, S, Skv, H, Hkv, Dh), "
         f"causal {causal}, window {window}: back to back {ms:.4f} ms, "
         f"device {fmt_ms(device_ms)}, plain {plain_ms:.4f} ms, SDPA "
-        f"{library_ms:.4f} ms (device {fmt_ms(library_device_ms)})" + (
-            f", contiguous entry {extra['contiguous_ms']:.4f} ms (device "
-            f"{fmt_ms(extra['contiguous_device_ms'])})" if contiguous
-            else "") + f"; bound {bound_ms:.4f} ms ({bound_by})")
+        f"{library_ms:.4f} ms (device {fmt_ms(library_device_ms)}); bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
     del sets, lib, q, k, v, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def contiguous_row(dev, gen, b: int, s: int, widths, window, dtype):
+    """The contiguous entry (``flash_prefill``, the TPU kernel's function:
+    one launch over the batch; bf16 runs the wgmma body, float32 the
+    CUDA-core body) at ``b`` x ``s`` causal tokens with ``window``, in
+    ``dtype``: against its plain version, then timed beside it and SDPA on
+    the same inputs (an explicit mask with a window, else ``is_causal``),
+    three input sets cycled. Returns the row's detail dict."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    h, hkv, dh = widths
+    esz = torch.finfo(dtype).bits // 8
+    kw = dict(causal=True, window=window)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    sets = [(rand(b, s, h, dh), rand(b, s, hkv, dh), rand(b, s, hkv, dh))
+            for _ in range(3)]
+    before = flash_prefill.launches
+    got = flash_prefill(*sets[0], **kw)
+    want = ref.flash_prefill(*sets[0], **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    err = (got.float() - want.float()).abs().max().item()
+    del got, want
+    pos = torch.arange(s, device=dev)
+    mask = pos[None] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None] > pos[:, None] - window
+    sdpa = dict(attn_mask=mask) if window is not None \
+        else dict(is_causal=True)
+    lib = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+           for q, k, v in sets]
+    ms, device_ms, host_us = cuda_ms(
+        lambda i: flash_prefill(*sets[i % 3], **kw), 9)
+    flash_prefill.launches = before  # timing launches are not the path's
+    plain_ms, plain_device_ms, _ = cuda_ms(
+        lambda i: ref.flash_prefill(*sets[i % 3], **kw), 6, warmup=1)
+    library_ms, library_device_ms, _ = cuda_ms(
+        lambda i: F.scaled_dot_product_attention(*lib[i % 3],
+                                                 enable_gqa=True, **sdpa), 9)
+    pairs = int(mask.sum())  # of one sequence
+    nbytes = 2 * b * s * h * dh * esz + 2 * b * s * hkv * dh * esz
+    flops = 4 * b * h * dh * pairs
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    row = dict(shape=[b, s, s, h, hkv, dh], dtype=str(dtype)[6:],
+               window=window, launches_per_call=1, max_abs_err=err, ms=ms,
+               device_ms=device_ms, host_us=host_us, plain_ms=plain_ms,
+               plain_device_ms=plain_device_ms, library_ms=library_ms,
+               library_device_ms=library_device_ms, valid_pairs=b * pairs,
+               bytes=nbytes, flops=flops, bound_ms=bound_ms,
+               bound_by=bound_by)
+    log(f"flash_prefill contiguous entry {row['dtype']} at hymba's prefill "
+        f"shape {row['shape']} (B, S, Skv, H, Hkv, Dh), window {window}: "
+        f"back to back {ms:.4f} ms, device {fmt_ms(device_ms)}, plain "
+        f"{plain_ms:.4f} ms (device {fmt_ms(plain_device_ms)}), SDPA "
+        f"{library_ms:.4f} ms (device {fmt_ms(library_device_ms)}); bound "
+        f"{bound_ms:.4f} ms ({bound_by}); max_abs_err {err:.3g}")
+    del sets, lib
     torch.cuda.empty_cache()
     return row
 
@@ -3789,7 +3889,8 @@ def prefill_shape_timing(dev, seed: int):
 def hymba_timing(dev, seed: int):
     """The two kernels of hymba's prefill at its shapes, bf16: the prefill
     attention (``attention_row``: HYMBA_BATCH x HYMBA_PROMPT tokens, G 5,
-    Dh 64, with the window and without, and the contiguous entry), and
+    Dh 64, with the window and without; and ``contiguous_row``: the
+    contiguous entry there, bf16 and float32), and
     ``ssd_scan`` at (HYMBA_BATCH x HYMBA_PROMPT, 64 heads of 50, state 16,
     chunk 256), three input sets cycled. Returns one detail dict per
     kernel."""
@@ -3801,12 +3902,17 @@ def hymba_timing(dev, seed: int):
     dtype = torch.bfloat16
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    widths = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     attention = {
         "window" if window else "global": attention_row(
-            "hymba's prefill shape", dev, gen, b, s, s,
-            (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim), window=window,
-            contiguous=True)
+            "hymba's prefill shape", dev, gen, b, s, s, widths,
+            window=window)
         for window in (cfg.sliding_window, None)}
+    attention["contiguous"] = {
+        str(dt)[6:]: {"window" if window else "global": contiguous_row(
+            dev, gen, b, s, widths, window, dt)
+            for window in (cfg.sliding_window, None)}
+        for dt in (torch.bfloat16, torch.float32)}
 
     shape = (b, s, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
              cfg.ssm_state, cfg.ssm_chunk)

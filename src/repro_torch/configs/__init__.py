@@ -104,6 +104,10 @@ class ArchConfig:
         return self.num_experts > 0
 
     @property
+    def is_ssm_only(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def is_hybrid(self) -> bool:
         return self.family == "hybrid"
 

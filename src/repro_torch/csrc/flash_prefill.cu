@@ -6,8 +6,17 @@
 // non-causal attention of (B, S, H, Dh) queries over (B, Skv, Hkv, Dh)
 // keys and values, GQA (G = H / Hkv query heads share one KV head), with
 // an optional sliding window (key k is valid for a query at position q iff
-// k <= q when causal, and k > q - window). Two entry points, each with its
-// own kernel body:
+// k <= q when causal, and k > q - window). Two entry points, three bodies:
+//  * flash_prefill_contiguous: the TPU kernel's own function on K/V views
+//    with a unit head_dim stride (float32 softmax, *unrounded*
+//    probabilities, acc / max(l, 1e-9), zeros for a row with no valid
+//    key). bf16 inputs run `flash_prefill_wgmma_kernel` (below); float32
+//    inputs (the tests' oracle type, held to 2e-5, which neither TF32 nor
+//    one bf16 rounding meets) keep a float32 CUDA-core body: 64-row x
+//    64-key tiles in shared memory, two passes over the keys, each of 256
+//    threads a 4 x 4 tile of scores and a 4 x (Dh / 16) tile of the
+//    output. The type selects the body; nothing falls back from one to the
+//    other.
 //  * flash_prefill_paged (the serving engine's prefill chunk and
 //    Model.prefill's attention, on the main path): S queries at absolute
 //    positions q_offset..q_offset+S-1 attend over the first kv_len
@@ -16,24 +25,90 @@
 //    ids[k / ps]), causally (kv_len = q_offset + S) or not (an encoder's
 //    self-attention, kv_len = S, and a decoder's cross-attention over the
 //    encoder's kv_len positions, any number). Its numerics are those of the
-//    port's
-//    `blockwise_attention`: q, k, v and the *normalised* probabilities are
-//    rounded to bfloat16, products accumulate in float32, the softmax is
-//    float32. Both products are therefore exactly what the tensor cores'
-//    bf16 -> f32 `mma` computes, under a float32 config too.
-//  * flash_prefill_contiguous: the TPU kernel's function on contiguous K/V
-//    (float32 math on the inputs as they are, unrounded probabilities). It
-//    is not on the serving path and keeps a float32 CUDA-core body: 64-row
-//    x 64-key tiles in shared memory, each of 256 threads a 4 x 4 tile of
-//    scores and a 4 x (Dh / 16) tile of the output.
-// Rounding normalised probabilities rules out a one-pass online softmax,
-// so both bodies make two passes over the keys: pass 1 takes each row's
-// max m and sum l = sum exp(s - m) over the valid keys, pass 2 forms
-// p = exp(s - m) / max(l, 1e-9) (rounded under the engine's numerics) and
-// accumulates p v. A row with no valid key returns zeros, as the TPU
-// kernel does.
+//    port's `blockwise_attention`: q, k, v and the *normalised*
+//    probabilities are rounded to bfloat16, products accumulate in float32,
+//    the softmax is float32. Both products are therefore exactly what the
+//    tensor cores' bf16 -> f32 `mma` computes, under a float32 config too.
+//    Rounding normalised probabilities rules out a one-pass online
+//    softmax, so it makes two passes over the keys: pass 1 takes each
+//    row's max m and sum l = sum exp(s - m) over the valid keys, pass 2
+//    forms p = exp(s - m) / max(l, 1e-9), rounds it and accumulates p v.
 //
-// What bounds the engine form on this card: operations. A 512-query chunk
+// -- The contiguous entry's bf16 body (flash_prefill_wgmma_kernel) ------
+//
+// What bounds it on this card: operations. At hymba-1.5b's prefill (4 x
+// 2048 tokens, H 25, Hkv 5, Dh 64, causal) Q K^T and P V over the valid
+// (query, key) pairs are 53.7 GFLOP, 0.054 ms at the bf16 tensor cores'
+// 989 TFLOP/s, against 36.7 MB to read and write (0.011 ms at 3.35 TB/s).
+// At Dh 64 every score also costs an exponential, and the SFU's 16 a cycle
+// an SM need as long for them as the tensor cores for the products: the
+// two have to overlap for the kernel to come near its bound.
+//
+// What the design does about it:
+//  * One pass with the online softmax, the TPU kernel's m / l / acc
+//    recurrence (the engine form's second pass exists only because it
+//    rounds normalised probabilities).
+//  * S = Q K^T on wgmma m64n128k16 with Q and K from shared memory; P V on
+//    wgmma m64n(64 NR)k16 with P from registers (the score accumulators
+//    are already P's A-operand layout) and V from shared memory,
+//    transposed. Dh is padded with zeros to 64 NR, NR = 1 or 2.
+//  * P is rounded to bf16 once for P V, not split into parts as
+//    ssd_scan's float32 operands are: the bf16 products are exact in the
+//    float32 accumulator, so P's rounding (2^-9 of each probability, of
+//    either sign, averaging over the keys) is the only one besides the
+//    output's own bf16 rounding (2^-8); l sums the unrounded p. Against
+//    the plain version the kernel phase measures at most one bf16 ulp of
+//    the output (1.56e-2 at |o| near 2-4), under bf16's 3e-2; a second
+//    part would double the P V products for an error the output's
+//    rounding hides.
+//  * Rows: an item is BQ = rows / G query positions x the G heads of one
+//    KV head (R = BQ G rows, as the reference's BlockSpec((1, 1, g,
+//    q_block, dh)) packs them), so that one staged K/V tile serves all G
+//    heads. At Dh <= 64 a block has three consumer warpgroups (192 rows:
+//    G 5 uses 190, G 6 all, G 48 four positions, all); at Dh <= 128 two
+//    (128 rows; G 48 uses 96). The consumers' registers (scores 64, P 32,
+//    O 32 NR a thread) come from the producer warpgroup, which gives its
+//    own back (setmaxnreg): 160 / 240 a consumer thread.
+//  * Loads: one warp of the producer warpgroup drives TMA. K/V tiles of
+//    128 keys come through a 4-D tensor map (Dh, Hkv, Skv, B), 128-byte
+//    swizzled, into a ring of three stages with full / empty mbarriers
+//    (one full barrier for a stage's K and V); Q through a map
+//    (Dh, H, S, B), one box of (64, G, BQ) an item, into two
+//    buffers at Dh <= 64 (one at Dh 128, where two do not fit), so the next
+//    item's Q loads while this one computes. Keys past Skv, positions past
+//    S and columns past Dh land as zeros. Strides TMA cannot take (not
+//    16-byte multiples, or pointers not 16-byte aligned) are staged
+//    through the producer's registers; a layout that qualifies but does
+//    not encode is an error.
+//  * Overlap: within a warpgroup, tile t's S = Q K^T issues with tile t -
+//    1's P V, and tile t's softmax runs while that P V does; across
+//    warpgroups, named barriers make them take turns to issue, so that
+//    one's softmax runs while another's products do.
+//  * Tile skipping: an item walks only the keys its rows can see, from its
+//    first position's window start to its last position's causal end (or
+//    Skv), and masks only the tiles that cross a row's range. A masked
+//    score is -inf, so its p is exactly 0 whatever the running max (which
+//    starts at the Pallas kernel's -1e30): a fully masked tile adds
+//    nothing, and a row with no valid key keeps l = 0 and writes zeros.
+//  * Grid: persistent, one block an SM. Items go longest first (the last
+//    positions see the most keys when causal), dealt in rounds of one an
+//    SM, every other round in reverse. A grid of one block per (query
+//    tile, Hkv, B) paid each block's start, first loads and drain: 0.03-
+//    0.06 ms of the first version's 0.21 at hymba's shape.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's
+// contiguous_row; PERF.md), at hymba's shape: ~0.138 ms causal against
+// SDPA's ~0.145, and ~0.120 ms with the 1024-token window against SDPA's
+// 0.440 with its mask: 39% and 34% of the bound. What holds it back
+// (benchmarks/torch_flash_prefill_breakdown.py, copies of this file with
+// one part cut out): not the exponentials (cutting them saves 2%) nor the
+// loads (2%), but the loop's fixed cost. With no products, no softmax and
+// no loads a call still takes ~0.055 ms, the items' Q loads and output
+// stores alone ~0.038; the products add ~0.029 and the softmax ~0.033.
+//
+// -- The engine form's body (flash_prefill_mma_kernel) --------------------
+//
+// What bounds it on this card: operations. A 512-query chunk
 // of h2o-danube (H 32, Hkv 8, Dh 80) over ~770 valid keys per query is ~4
 // GFLOP against ~8 MB of q, K/V and output: ~500 operations per byte, above
 // the ~295 at which an H100's bf16 tensor cores become the limit.
@@ -73,6 +148,7 @@
 #include <stdint.h>
 
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -81,25 +157,25 @@ constexpr float kMinusInf = -__builtin_huge_valf();  // a masked score
 constexpr int kMaxDh = 128;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
 struct Args {
-  CUtensorMap kmap, vmap;  // paged entry with `tma`: the pools' tensor maps
+  CUtensorMap kmap, vmap;  // the K / V tensor maps where `tma`
+  CUtensorMap qmap;        // contiguous bf16 entry with `tma_q`: q's map
   const void* q;         // (B, S, H, Dh), contiguous
   const void* k;         // contiguous entry: (b, pos, h, d) at
   const void* v;         //   b*sb + pos*st + h*sh + d; paged entry:
   const int32_t* pages;  //   pages[pos / ps]*sp + (pos % ps)*st + h*sh + d
   void* out;             // (B, S, H, Dh), contiguous
   int S, H, Hkv, Dh, page_size, num_pages, q_offset, kv_len, window;
+  int batch;  // contiguous bf16 entry: B
   bool causal;
   bool vec;  // paged entry: pools 16-byte aligned in pointer and strides
-  bool tma;  // paged entry: K/V tiles staged by TMA boxes of box_t tokens
+  bool tma;  // K/V tiles staged by TMA (paged entry: boxes of box_t tokens)
+  bool tma_q;  // contiguous bf16 entry: Q tiles by TMA
   int box_t;
   int pg_cap;  // paged entry: most page ids one block's key range spans
   int nsm;     // paged entry: the card's SMs
@@ -644,6 +720,486 @@ flash_prefill_mma_kernel(const __grid_constant__ Args a) {
   }
 }
 
+// -- contiguous form in bf16: one pass on wgmma ------------------------------
+
+// NR: 64-column regions of a head (Dh <= 64 NR). A block is one producer
+// warpgroup (one warp of it drives the loads) and NWG consumer
+// warpgroups of 64 rows each: three at NR 1, two at NR 2, the most whose
+// registers fit once the producer gives its own back (setmaxnreg): the
+// scores (64), P (32) and O (32 NR) of a thread, and their addresses
+__host__ __device__ constexpr int wg_consumers(int NR) {
+  return NR == 1 ? 3 : 2;
+}
+__host__ __device__ constexpr int wg_rows(int NR) {
+  return 64 * wg_consumers(NR);
+}
+__host__ __device__ constexpr int wg_threads(int NR) {
+  return 128 * (wg_consumers(NR) + 1);
+}
+__host__ __device__ constexpr int wg_regs(int NR) {  // a consumer thread's
+  return NR == 1 ? 160 : 240;
+}
+// a producer thread's. The launch gives every thread the same count
+// (65536 / threads, down to a multiple of 8); setmaxnreg.inc waits until
+// the registers it asks for are free, so what the producer warpgroup gives
+// back must cover what the consumers take, or they wait forever
+__host__ __device__ constexpr int wg_producer_regs(int NR) {
+  return NR == 1 ? 32 : 24;
+}
+__host__ __device__ constexpr bool wg_regs_balance(int NR) {
+  return (wg_regs(NR) - 65536 / wg_threads(NR) / 8 * 8) * wg_consumers(NR) <=
+         65536 / wg_threads(NR) / 8 * 8 - wg_producer_regs(NR);
+}
+static_assert(wg_regs_balance(1) && wg_regs_balance(2),
+              "the producer frees the registers the consumers take");
+constexpr int kWgKeys = 128;  // keys of a K / V tile
+// bytes of one 64-column region (128-byte rows, swizzled) of a K / V tile;
+// a Q buffer's region is wg_rows(NR) rows
+constexpr int kKvRegion = kWgKeys * 128;
+constexpr int kWgStages = 3;  // K / V stages: tiles t + 1, t + 2 load
+                              // while tile t computes
+// Q buffers: with two, the next item's Q loads while this one computes
+// (one at NR 2, where two do not fit)
+__host__ __device__ constexpr int wg_qbufs(int NR) { return NR == 1 ? 2 : 1; }
+// the dynamic shared memory: the Q buffers, the stages' K and V tiles, and
+// 1024 bytes of alignment slack
+__host__ __device__ constexpr size_t wg_smem(int NR) {
+  return 1024 + (size_t)NR * (wg_qbufs(NR) * wg_rows(NR) * 128 +
+                              2 * kWgStages * kKvRegion);
+}
+
+// up to 8 consecutive bf16 of a row (zeros past n), as one 16-byte piece
+__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* p, int n) {
+  __align__(16) __nv_bfloat16 x[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = e < n ? p[e] : __float2bfloat16(0.f);
+  return *reinterpret_cast<const uint4*>(x);
+}
+
+template <int NR>
+__global__ void __launch_bounds__(wg_threads(NR), 1)
+flash_prefill_wgmma_kernel(const __grid_constant__ Args a) {
+  constexpr int NS = kWgStages, QB = wg_qbufs(NR), NWG = wg_consumers(NR);
+  constexpr int ROWS = wg_rows(NR), QREG = ROWS * 128;  // a Q region's bytes
+  constexpr int KS = 4 * NR;   // k-steps of Q K^T (16 columns of the head)
+  constexpr int NO = 32 * NR;  // output accumulators a thread
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  // full[s]: stage s's K and V tiles have landed; empty[s]: every consumer
+  // warp is done with stage s; q_full / q_empty: the same for the Q buffers
+  __shared__ __align__(8) uint64_t bar_s[2 * NS + 2 * QB];
+  uint64_t* full = bar_s;
+  uint64_t* empty = bar_s + NS;
+  uint64_t* q_full = bar_s + 2 * NS;
+  uint64_t* q_empty = q_full + QB;
+  // the swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* q_s = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* k_s = q_s + QB * NR * QREG;       // NS stages of NR regions
+  unsigned char* v_s = k_s + NS * NR * kKvRegion;  // NS stages of NR regions
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.H / a.Hkv, S = a.S, Skv = a.kv_len, Dh = a.Dh;
+  // an item is BQ positions x the G heads of one KV head of one sequence:
+  // R = BQ G rows, row r at position pos0 + r / G, head kvh G + r % G
+  const int BQ = ROWS / G, R = BQ * G;
+  const int ntile = (S + BQ - 1) / BQ, nbh = a.Hkv * a.batch;
+  const int n_items = ntile * nbh;
+  // Items in order of decreasing length (the last positions see the most
+  // keys when causal), dealt to the blocks in rounds of gridDim.x, every
+  // other round in reverse, so that the blocks' totals stay level: round i
+  // gives block k item i gridDim.x + (k, or gridDim.x - 1 - k when i is
+  // odd)
+  auto item_index = [&](int i) {
+    const int k = (i & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    return i * (int)gridDim.x + k;
+  };
+  struct Item {
+    int pos0, kvh, b, k_lo, nt;
+  };
+  auto item_of = [&](int j) {
+    Item it;
+    const int bh = j % nbh;
+    it.pos0 = (ntile - 1 - j / nbh) * BQ;
+    it.kvh = bh % a.Hkv;
+    it.b = bh / a.Hkv;
+    // the item's keys: from its first position's window start to its last
+    // position's causal end, in tiles of kWgKeys from k_lo
+    const int p_last = min(it.pos0 + BQ, S) - 1;
+    it.k_lo = a.window > 0 ? max(0, it.pos0 - a.window + 1) : 0;
+    const int k_hi = a.causal ? min(p_last + 1, Skv) : Skv;
+    it.nt = k_hi > it.k_lo ? (k_hi - it.k_lo + kWgKeys - 1) / kWgKeys : 0;
+    return it;
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) {
+      tma::mbar_init(&full[i], a.tma ? 1 : 32);
+      tma::mbar_init(&empty[i], 4 * NWG);
+    }
+    for (int i = 0; i < QB; ++i) {
+      tma::mbar_init(&q_full[i], a.tma_q ? 1 : 32);
+      tma::mbar_init(&q_empty[i], 4 * NWG);
+    }
+    tma::mbar_init_fence();
+  }
+  // rows R.. of the Q buffers stay zero (TMA writes rows < R only)
+  for (int e = tid; e < QB * NR * QREG / 16; e += wg_threads(NR)) {
+    const int row = (e >> 3) % ROWS;
+    if (row >= R)
+      reinterpret_cast<uint4*>(q_s)[e] = make_uint4(0, 0, 0, 0);
+  }
+  tma::fence_proxy_async();  // read by wgmma (the async proxy)
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {  // the producer warpgroup: one warp loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        wg_producer_regs(NR)));
+    if (warp != 4 * NWG) return;
+    // through registers: the tile's `total` rows of `region` bytes a 64
+    // columns, lane converts 16-byte pieces, zeros past `rows` and the
+    // columns; then fenced for wgmma
+    auto stage_rows = [&](unsigned char* dst, int region, int total,
+                          int rows, auto row_ptr) {
+      for (int e = lane; e < total * NR * 8; e += 32) {
+        const int r = e / (NR * 8), c = e - r * (NR * 8);
+        uint4 x = make_uint4(0, 0, 0, 0);
+        const __nv_bfloat16* p = r < rows ? row_ptr(r) : nullptr;
+        if (p != nullptr && 8 * c < Dh) x = load8_bf16(p + 8 * c, Dh - 8 * c);
+        *reinterpret_cast<uint4*>(dst + (c >> 3) * region +
+                                  wg::sw128(r, (c & 7) * 8)) = x;
+      }
+      tma::fence_proxy_async();
+    };
+    const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q);
+    int gt = 0;  // the block's K / V tiles so far
+    for (int i = 0, n = 0; i * (int)gridDim.x < n_items; ++i) {
+      if (item_index(i) >= n_items) continue;
+      const Item it = item_of(item_index(i));
+      const int qb = n % QB;
+      unsigned char* qt = q_s + qb * NR * QREG;
+      if (n >= QB) tma::mbar_wait_or_trap(&q_empty[qb], (n / QB - 1) & 1);
+      ++n;  // items so far
+      if (a.tma_q) {  // positions past S land as zeros
+        if (lane == 0) {
+          tma::mbar_arrive_expect(&q_full[qb], NR * R * 128);
+          for (int r = 0; r < NR; ++r)
+            tma::load_4d(qt + r * QREG, &a.qmap, 64 * r, it.kvh * G,
+                         it.pos0, it.b, &q_full[qb]);
+        }
+      } else {
+        stage_rows(qt, QREG, ROWS, R, [&](int r) -> const __nv_bfloat16* {
+          const int pos = it.pos0 + r / G;
+          return pos < S ? qg + (((int64_t)it.b * S + pos) * a.H +
+                                 it.kvh * G + r % G) * Dh
+                         : nullptr;
+        });
+        tma::mbar_arrive(&q_full[qb]);
+      }
+      const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) +
+                                (int64_t)it.b * a.k_sb +
+                                (int64_t)it.kvh * a.k_sh;
+      const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) +
+                                (int64_t)it.b * a.v_sb +
+                                (int64_t)it.kvh * a.v_sh;
+      for (int t = 0; t < it.nt; ++t, ++gt) {
+        const int st = gt % NS, kb = it.k_lo + t * kWgKeys;
+        unsigned char* kt = k_s + st * NR * kKvRegion;
+        unsigned char* vt = v_s + st * NR * kKvRegion;
+        if (gt >= NS) tma::mbar_wait_or_trap(&empty[st], (gt / NS - 1) & 1);
+        if (a.tma) {  // keys past Skv and columns past Dh land as zeros
+          if (lane == 0) {
+            tma::mbar_arrive_expect(&full[st], 2 * NR * kKvRegion);
+            for (int r = 0; r < NR; ++r) {
+              tma::load_4d(kt + r * kKvRegion, &a.kmap, 64 * r, it.kvh, kb,
+                           it.b, &full[st]);
+              tma::load_4d(vt + r * kKvRegion, &a.vmap, 64 * r, it.kvh, kb,
+                           it.b, &full[st]);
+            }
+          }
+        } else {
+          const int n = min(kWgKeys, Skv - kb);
+          stage_rows(kt, kKvRegion, kWgKeys, n, [&](int r) {
+            return kg + (int64_t)(kb + r) * a.k_st;
+          });
+          stage_rows(vt, kKvRegion, kWgKeys, n, [&](int r) {
+            return vg + (int64_t)(kb + r) * a.v_st;
+          });
+          tma::mbar_arrive(&full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // -- consumers: warpgroup wgi owns rows 64 wgi .. 64 wgi + 63 -------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(wg_regs(NR)));
+  const int wgi = warp >> 2, gid = lane >> 2, tig = lane & 3;
+  const int row0 = 64 * wgi + 16 * (warp & 3) + gid;  // this thread's rows:
+                                                      // row0 and row0 + 8
+  // softmax in base 2: p = 2^(s c - m), c = scale * log2(e), m the running
+  // max of s c, floored at the Pallas kernel's -1e30 so that it stays
+  // finite; a masked score is -inf, so its p is exactly 0 whatever m is
+  const float c2 = a.scale * 1.4426950408889634f;
+  float s[64];  // scores: key 8 j + 2 tig + e of row h at s[4 j + 2 h + e]
+  float o[NO];  // output: column 8 j + 2 tig + e of row h at o[4 j + 2 h + e]
+  uint32_t pa[8][4];  // P in bf16, the A operand of P V (16 keys a step)
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out);
+  // The warpgroups take turns, in a ring, to issue their products (named
+  // barrier 1 + w is warpgroup w's turn: it waits on its own and, once it
+  // has issued, lets the next through), so that one's softmax runs while
+  // another's products do; warpgroup 0 goes first
+  auto turn_wait = [&]() {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wgi),
+                 "n"(2 * 128) : "memory");
+  };
+  auto turn_pass = [&]() {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + (wgi + 1) % NWG),
+                 "n"(2 * 128) : "memory");
+  };
+  if (wgi == NWG - 1) turn_pass();
+  int gt = 0;  // the block's K / V tiles so far
+  for (int i = 0, n = 0; i * (int)gridDim.x < n_items; ++i) {
+    if (item_index(i) >= n_items) continue;
+    const Item it = item_of(item_index(i));
+    const int qb = n % QB, q_phase = (n / QB) & 1;
+    ++n;  // items so far
+    const unsigned char* q_wg = q_s + qb * NR * QREG + wgi * 64 * 128;
+    // this thread's two rows (h = 0, 1) see keys lo[h] <= k < hi[h]; a row
+    // past the item computes on zero queries and is not written
+    int lo[2], hi[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h, pos = r < R ? it.pos0 + r / G : S;
+      lo[h] = pos < S && a.window > 0 ? pos - a.window + 1 : 0;
+      hi[h] = pos < S && a.causal ? min(pos + 1, Skv) : Skv;
+    }
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < NO; ++e) o[e] = 0.f;
+
+    auto issue_scores = [&](int t) {  // S = Q K_t^T (m64 n128, k = Dh)
+      const int st = (gt + t) % NS;
+      tma::mbar_wait_or_trap(&full[st], ((gt + t) / NS) & 1);  // K and V
+      const unsigned char* kt = k_s + st * NR * kKvRegion;
+      wg::pin(s);
+      wg::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        wg::wg_ss_n128(
+            s,
+            wg::gdesc(q_wg + (ks >> 2) * QREG + (ks & 3) * 32, 16, 1024),
+            wg::gdesc(kt + (ks >> 2) * kKvRegion + (ks & 3) * 32, 16, 1024),
+            ks > 0);
+      wg::wg_commit();
+    };
+    auto issue_pv = [&](int t) {  // O += P V_t (m64 n(64 NR), k = keys)
+      const int st = (gt + t) % NS;
+      const unsigned char* vt = v_s + st * NR * kKvRegion;
+      wg::pin(o);
+      wg::pin_a(pa);
+      wg::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+        const uint64_t dv = wg::gdesc(vt + kk * 2048, kKvRegion, 1024);
+        if constexpr (NR == 1)
+          wg::wg_n64_t(*reinterpret_cast<float(*)[32]>(o), pa[kk], dv, 1);
+        else
+          wg::wg_n128_t(*reinterpret_cast<float(*)[64]>(o), pa[kk], dv, 1);
+      }
+      wg::wg_commit();
+    };
+    auto release = [&](uint64_t* bar) {  // the warp is done with a buffer
+      __syncwarp();
+      if (lane == 0) tma::mbar_arrive(bar);
+    };
+    // mask tile t where it crosses a row's range, then the online softmax:
+    // s becomes p (unrounded), m and l move on, alpha rescales O
+    auto softmax = [&](int t, float (&alpha)[2]) {
+      const int kb = it.k_lo + t * kWgKeys;
+      const bool full = lo[0] <= kb && kb + kWgKeys <= hi[0] &&
+                        lo[1] <= kb && kb + kWgKeys <= hi[1];
+      if (!full) {
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = kb + 8 * jj + 2 * tig + e;
+              if (key < lo[h] || key >= hi[h])
+                s[4 * jj + 2 * h + e] = kMinusInf;
+            }
+      }
+      // the row max and sum in two chains each (the additions' order
+      // differs from a serial sum in float32 rounding only)
+      float mt[2][2], sum[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          mt[h][c] = fmaxf(s[4 * c + 2 * h], s[4 * c + 2 * h + 1]);
+#pragma unroll
+      for (int jj = 2; jj < 16; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          mt[h][jj & 1] = fmaxf(mt[h][jj & 1], fmaxf(s[4 * jj + 2 * h],
+                                                     s[4 * jj + 2 * h + 1]));
+      float m_new[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x = fmaxf(mt[h][0], mt[h][1]);
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        m_new[h] = fmaxf(m[h], x * c2);
+        alpha[h] = ex2(m[h] - m_new[h]);
+        m[h] = m_new[h];
+        sum[h][0] = sum[h][1] = 0.f;
+      }
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2(fmaf(s[4 * jj + 2 * h + e], c2, -m_new[h]));
+            s[4 * jj + 2 * h + e] = p;
+            sum[h][jj & 1] += p;
+          }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        l[h] = l[h] * alpha[h] + (sum[h][0] + sum[h][1]);
+    };
+    auto pack_p = [&]() {  // the score accumulators are P's A layout
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+    };
+
+    tma::mbar_wait_or_trap(&q_full[qb], q_phase);
+    if (it.nt > 0) {
+      float alpha[2];
+      turn_wait();
+      issue_scores(0);
+      turn_pass();
+      wg::wg_wait();
+      wg::pin(s);
+      softmax(0, alpha);
+      pack_p();
+      // tile t's scores run while tile t - 1's P V does, and tile t's
+      // softmax while P V still runs
+      for (int t = 1; t < it.nt; ++t) {
+        turn_wait();
+        issue_scores(t);
+        issue_pv(t - 1);
+        turn_pass();
+        wg::wg_wait_1();  // the scores
+        wg::pin(s);
+        softmax(t, alpha);
+        wg::wg_wait();  // P V
+        wg::pin(o);
+        wg::pin_a(pa);
+        release(&empty[(gt + t - 1) % NS]);
+#pragma unroll
+        for (int e = 0; e < NO; e += 4) {
+          o[e] *= alpha[0];
+          o[e + 1] *= alpha[0];
+          o[e + 2] *= alpha[1];
+          o[e + 3] *= alpha[1];
+        }
+        pack_p();
+      }
+      release(&q_empty[qb]);  // every Q K^T of the item is complete
+      turn_wait();
+      issue_pv(it.nt - 1);
+      turn_pass();
+      wg::wg_wait();
+      wg::pin(o);
+      wg::pin_a(pa);
+      release(&empty[(gt + it.nt - 1) % NS]);
+    } else {
+      release(&q_empty[qb]);
+    }
+    gt += it.nt;
+
+    // acc / max(l, 1e-9): a row with no valid key has l = 0 and o = 0
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lt = l[h];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const float inv = 1.f / fmaxf(lt, 1e-9f);
+      const int r = row0 + 8 * h, pos = it.pos0 + r / G;
+      if (r >= R || pos >= S) continue;
+      __nv_bfloat16* orow =
+          og + (((int64_t)it.b * S + pos) * a.H + it.kvh * G + r % G) * Dh;
+#pragma unroll
+      for (int jj = 0; jj < NO / 4; ++jj) {
+        const int d = 8 * jj + 2 * tig;
+        const float x0 = o[4 * jj + 2 * h] * inv;
+        const float x1 = o[4 * jj + 2 * h + 1] * inv;
+        if ((Dh & 1) == 0) {
+          if (d < Dh)
+            *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+                __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (d < Dh) orow[d] = __float2bfloat16(x0);
+          if (d + 1 < Dh) orow[d + 1] = __float2bfloat16(x1);
+        }
+      }
+    }
+  }
+}
+
+template <int NR>
+int launch_wgmma(Args a, int B, cudaStream_t stream) {
+  // K / V by TMA through a 4-D map (Dh, Hkv, Skv, B) (innermost first)
+  // where the pointers are 16-byte aligned and every stride a nonzero
+  // multiple of 16 bytes, else through the producer's registers; Q by TMA
+  // through a map (Dh, H, S, B) where q is aligned and Dh a multiple of 8.
+  // A layout that qualifies but does not encode is an error.
+  const auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const auto ok = [](int64_t st) { return st > 0 && (st * 2) % 16 == 0; };
+  a.tma = al(a.k) && al(a.v) && ok(a.k_sb) && ok(a.k_st) && ok(a.k_sh) &&
+          ok(a.v_sb) && ok(a.v_st) && ok(a.v_sh);
+  a.tma_q = al(a.q) && a.Dh % 8 == 0;
+  const int G = a.H / a.Hkv;
+  int e = 0;
+  if (a.tma) {
+    const int64_t dims[4] = {a.Dh, a.Hkv, a.kv_len, B};
+    const int box[4] = {64, 1, kWgKeys, 1};
+    const int64_t ks[3] = {a.k_sh, a.k_st, a.k_sb},
+                  vs[3] = {a.v_sh, a.v_st, a.v_sb};
+    e = tma::encode_tiled(&a.kmap, a.k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                          4, dims, ks, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e == 0)
+      e = tma::encode_tiled(&a.vmap, a.v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            2, 4, dims, vs, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (e == 0 && a.tma_q) {
+    const int64_t dims[4] = {a.Dh, a.H, a.S, B};
+    const int box[4] = {64, G, wg_rows(NR) / G, 1};
+    const int64_t qs[3] = {a.Dh, (int64_t)a.H * a.Dh,
+                           (int64_t)a.S * a.H * a.Dh};
+    e = tma::encode_tiled(&a.qmap, a.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                          4, dims, qs, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (e == 0) e = tma::sm_count(&a.nsm);
+  if (e) return e;
+  const size_t smem = wg_smem(NR);
+  e = tma::allow_smem((const void*)flash_prefill_wgmma_kernel<NR>, smem);
+  if (e) return e;
+  // one block an SM, each walking its items
+  const int bq = wg_rows(NR) / G;
+  const int64_t items = (int64_t)(a.S + bq - 1) / bq * a.Hkv * B;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  a.batch = B;
+  dim3 grid((unsigned)(items < a.nsm ? items : a.nsm));
+  flash_prefill_wgmma_kernel<NR><<<grid, wg_threads(NR), smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_f32(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
@@ -743,7 +1299,8 @@ int flash_prefill_contiguous(const void* q, const void* k, const void* v,
   if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_f32<float>(a, B, s);
-  if (dtype == 1) return launch_f32<__nv_bfloat16>(a, B, s);
+  if (dtype == 1)
+    return a.Dh <= 64 ? launch_wgmma<1>(a, B, s) : launch_wgmma<2>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -91,11 +91,22 @@
 #include <stdint.h>
 
 #include "tma.cuh"  // allow_smem, smem_u32
+#include "wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using tma::smem_u32;
+using wg::gdesc;
+using wg::pin;
+using wg::sw128;
+using wg::wg_commit;
+using wg::wg_fence;
+using wg::wg_n128_t;
+using wg::wg_n32;
+using wg::wg_n64;
+using wg::wg_n64_t;
+using wg::wg_wait;
 
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 128;
@@ -381,36 +392,6 @@ constexpr int kBytesB = 2 * kRegionJ;  // B tile (32 x 128)
 constexpr int kBytesX = kRegionJ;      // x tile (32 x 64)
 constexpr int kBytesS = 2 * kRegionC;  // one part of the state (64 x 128)
 
-// the byte offset of element (row, col) in a region, col < 64
-__device__ __forceinline__ uint32_t sw128(int row, int col) {
-  return row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) << 1));
-}
-// a wgmma shared-memory matrix descriptor, 128-byte swizzle: lbo = bytes
-// between 64-element atoms along a row-contiguous (MN-major) operand's N,
-// sbo = bytes between 8-row groups
-__device__ __forceinline__ uint64_t gdesc(const void* p, uint32_t lbo,
-                                          uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until every committed group is complete
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator accesses across a wait
-template <int R>
-__device__ __forceinline__ void pin(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // keep a register A operand in its registers until its products are waited
 // for (wgmma reads them after the issuing instruction)
 template <int K>
@@ -421,92 +402,6 @@ __device__ __forceinline__ void pin_a(uint32_t (&a)[K][kSplit][4]) {
     for (int s = 0; s < kSplit; ++s)
 #pragma unroll
       for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[k][s][e])::"memory");
-}
-
-// wgmma.m64nNk16, bf16 -> f32: d += a b (d = a b when scale_d is 0), A
-// from registers (each warp's 16 rows in the mma.m16n8k16 A layout), B
-// from shared memory, K-major (row n of the tile holds the operand's
-// column n), or transposed (_t: row k of the tile is the operand's row k).
-__device__ __forceinline__ void wg_n32(float (&d)[16],
-                                       const uint32_t (&a)[4], uint64_t db,
-                                       int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
-      "{%16,%17,%18,%19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-__device__ __forceinline__ void wg_n64(float (&d)[32],
-                                       const uint32_t (&a)[4], uint64_t db,
-                                       int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
-      "{%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-__device__ __forceinline__ void wg_n64_t(float (&d)[32],
-                                       const uint32_t (&a)[4], uint64_t db,
-                                       int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
-      "{%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-__device__ __forceinline__ void wg_n128_t(float (&d)[64],
-                                       const uint32_t (&a)[4], uint64_t db,
-                                       int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
-      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
-      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
-      "{%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
@@ -550,22 +445,6 @@ __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
                : "memory");
 }
-// Wait for phase `parity` of an mbarrier that TMA completes; a copy still
-// outstanding after seconds is a fault: trap rather than hang the card.
-__device__ __forceinline__ void wait_tiles(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (int64_t spins = 0; !done; ++spins) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (spins > (1ll << 24)) __trap();
-  }
-}
-
 // A tile of `rows` rows through registers, for layouts TMA cannot take: row
 // r from src + r * stride, `cols` valid columns (zeros past them and from
 // row `valid` on), `width` columns (a multiple of 8) written into 64-column
@@ -698,7 +577,7 @@ ssd_scan_bf16_kernel(const __grid_constant__ Args a) {
     }
   };
   auto tiles = [&](int q) {
-    wait_tiles(&bar_s[q % kStages], (q / kStages) & 1);
+    tma::mbar_wait_or_trap(&bar_s[q % kStages], (q / kStages) & 1);
   };
   // The C tile of row tile it (called by every thread once no warp reads
   // the previous one).
@@ -868,7 +747,7 @@ ssd_scan_bf16_kernel(const __grid_constant__ Args a) {
     const int ia = i0 + 16 * warp + g, ib = ia + 8;  // rows in the chunk
     if (jb.row_start) {
       // the row tile's C fragments, then the next row tile's C tile
-      wait_tiles(&bar_s[kStages], it & 1);
+      tma::mbar_wait_or_trap(&bar_s[kStages], it & 1);
 #pragma unroll
       for (int ks = 0; ks < kMaxN / 16; ++ks)
         ldmatrix_x4(cf[ks], smem_u32(c_s) + (ks >> 2) * kRegionC +

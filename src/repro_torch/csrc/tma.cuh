@@ -59,6 +59,23 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
   } while (!done);
 }
+// the same, for waits that end within microseconds when the kernel is
+// right: a phase still incomplete after ~16 M polls is a fault, and the
+// thread traps (the launch's error) rather than hang the card
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  for (int64_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (spins > (1ll << 24)) __trap();
+  }
+}
 // order this thread's generic-proxy shared-memory accesses before later
 // async-proxy (TMA) writes to the same bytes
 __device__ __forceinline__ void fence_proxy_async() {
@@ -74,6 +91,19 @@ __device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map,
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one box of a 4-D tensor map into shared memory, counted on `bar`
+__device__ __forceinline__ void load_4d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2, int c3,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -100,20 +130,19 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// The pool slice (P, ps, Hkv, Dh), heads contiguous, seen by TMA as a 3-D
-// tensor (Hkv * Dh, ps, P); one box is box_w elements x box_t tokens of one
-// page, landing as box_t rows of box_w elements. A box that starts at head h
-// reads box_w - Dh elements of head h + 1 (zeros past the last head).
-// Any (dim0, rows, count) tensor with row stride st and count stride sp
-// (elements) takes the same map; `swizzle` sets the layout a box lands in
-// (ssd_scan's tiles land 128-byte swizzled, for wgmma).
+// A tensor of `rank` (<= 5) dimensions, dims[0] innermost and contiguous,
+// strides[i] the elements between neighbours along dims[i + 1]; one box is
+// box[0] x ... elements, landing as rows of box[0] elements in the
+// `swizzle` layout (zeros where it reaches past a dimension).
 // Writes the map to *map and returns 0, or kEncodeError + the CUresult.
 // The maps are cached, keyed on everything they encode: an engine's
 // per-layer pools are the same few slices call after call.
-inline int encode_pool(
-    CUtensorMap* map, const void* base, CUtensorMapDataType type, int esz,
-    int hkv_dh, int ps, int pages, int64_t st, int64_t sp, int box_w,
-    int box_t, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+inline int encode_tiled(CUtensorMap* map, const void* base,
+                        CUtensorMapDataType type, int esz, int rank,
+                        const int64_t* dims, const int64_t* strides,
+                        const int* box,
+                        CUtensorMapSwizzle swizzle =
+                            CU_TENSOR_MAP_SWIZZLE_NONE) {
   static const EncodeTiled encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -124,12 +153,14 @@ inline int encode_pool(
     return reinterpret_cast<EncodeTiled>(fn);
   }();
   if (encode == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  if (rank < 1 || rank > 5)
+    return kEncodeError + (int)CUDA_ERROR_INVALID_VALUE;
 
   struct Key {
     const void* base;
-    uint64_t dims[3], strides[2];
-    uint32_t box[2];
-    int type, swizzle;
+    uint64_t dims[5], strides[4];
+    uint32_t box[5];
+    int rank, type, swizzle;
   };
   struct Slot {
     Key key;
@@ -142,13 +173,12 @@ inline int encode_pool(
   Key key;
   memset(&key, 0, sizeof key);  // the padding takes part in the compare
   key.base = base;
-  key.dims[0] = (uint64_t)hkv_dh;
-  key.dims[1] = (uint64_t)ps;
-  key.dims[2] = (uint64_t)pages;
-  key.strides[0] = (uint64_t)(st * esz);
-  key.strides[1] = (uint64_t)(sp * esz);
-  key.box[0] = (uint32_t)box_w;
-  key.box[1] = (uint32_t)box_t;
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = (uint64_t)dims[i];
+    key.box[i] = (uint32_t)box[i];
+    if (i + 1 < rank) key.strides[i] = (uint64_t)(strides[i] * esz);
+  }
+  key.rank = rank;
   key.type = (int)type;
   key.swizzle = (int)swizzle;
   uint64_t h = 1469598103934665603ull;  // FNV-1a over the key's bytes
@@ -164,11 +194,11 @@ inline int encode_pool(
       return 0;
     }
   }
-  const cuuint32_t box[3] = {(cuuint32_t)box_w, (cuuint32_t)box_t, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r =
-      encode(map, type, 3, const_cast<void*>(base), key.dims, key.strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      encode(map, type, (cuuint32_t)rank, const_cast<void*>(base),
+             key.dims, key.strides, key.box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
@@ -182,6 +212,22 @@ inline int encode_pool(
   slots[dst].map = *map;
   slots[dst].used = true;
   return 0;
+}
+
+// The pool slice (P, ps, Hkv, Dh), heads contiguous, seen by TMA as a 3-D
+// tensor (Hkv * Dh, ps, P); one box is box_w elements x box_t tokens of one
+// page, landing as box_t rows of box_w elements. A box that starts at head h
+// reads box_w - Dh elements of head h + 1 (zeros past the last head).
+// Any (dim0, rows, count) tensor with row stride st and count stride sp
+// (elements) takes the same map; `swizzle` sets the layout a box lands in
+// (ssd_scan's tiles land 128-byte swizzled, for wgmma).
+inline int encode_pool(
+    CUtensorMap* map, const void* base, CUtensorMapDataType type, int esz,
+    int hkv_dh, int ps, int pages, int64_t st, int64_t sp, int box_w,
+    int box_t, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+  const int64_t dims[3] = {hkv_dh, ps, pages}, strides[2] = {st, sp};
+  const int box[3] = {box_w, box_t, 1};
+  return encode_tiled(map, base, type, esz, 3, dims, strides, box, swizzle);
 }
 
 constexpr int kMaxDevices = 64;

@@ -5,7 +5,8 @@ flash_prefill``).
 Two entry points of one kernel:
 
 * :func:`flash_prefill` is the TPU kernel's function on contiguous K/V
-  (float32 math, unrounded probabilities);
+  (a float32 softmax with unrounded probabilities; in bf16 the kernel
+  rounds them once, for their product with V);
 * :func:`prefill_attention_paged` is one prefill chunk of the serving
   engine: it reads K/V in place from a per-layer pool slice through the
   chunk's page ids, with the numerics of ``blockwise_attention`` (bf16
@@ -103,6 +104,9 @@ def flash_prefill(q, k, v, *, causal: bool = True,
 
     On CUDA: q contiguous; k and v any strided views with a unit head_dim
     stride; one dtype (float32 or bfloat16) for q, k, v and the output.
+    bfloat16 runs the tensor-core body (one pass, the probabilities
+    rounded to bfloat16 for P V), float32 the CUDA-core body; one launch
+    either way.
     """
     _build.refuse_grad("flash_prefill", q, k, v)
     _build.refuse_dtensor("flash_prefill", q, k, v)

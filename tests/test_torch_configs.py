@@ -29,6 +29,7 @@ import jax
 import numpy as np
 import pytest
 
+from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
 from repro.core.scheduling.request import Request as JaxRequest
 from repro.models import Model as JaxModel
@@ -36,7 +37,7 @@ from repro.serving.engine import EngineConfig as JaxEngineConfig
 from repro.serving.engine import PagedEngine as JaxEngine
 
 from repro_torch.bridge import from_numpy_tree
-from repro_torch.configs import ArchConfig
+from repro_torch.configs import ARCH_IDS, ArchConfig, get_config
 from repro_torch.core.scheduling.request import Request
 from repro_torch.serving.engine import EngineConfig, PagedEngine
 
@@ -148,3 +149,12 @@ def test_llama4_engine_matches_model_forward_without_drops():
                 [prompt + toks[:-1]]))
             want = logits[0, len(prompt) - 1:, :cfg.vocab_size].argmax(-1)
             assert toks == want.tolist()
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_family_predicates_match_reference(arch):
+    """``is_ssm_only``, ``is_moe``, ``is_hybrid`` and ``is_encdec`` of every
+    arch the port knows, against the JAX config's."""
+    mine, ref = get_config(arch), jax_get_config(arch)
+    for name in ("is_ssm_only", "is_moe", "is_hybrid", "is_encdec"):
+        assert getattr(mine, name) == getattr(ref, name), name

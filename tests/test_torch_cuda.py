@@ -228,16 +228,49 @@ def test_cuda_kernel_raises_instead_of_falling_back(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "b,s,h,hkv,dh,causal,window",
-    [(1, 128, 4, 4, 64, True, None), (2, 256, 8, 2, 64, True, None),
-     (2, 256, 8, 2, 64, True, 64), (1, 128, 4, 1, 32, False, None),
-     (2, 192, 6, 2, 80, True, None), (1, 100, 32, 8, 80, False, 16)])
-def test_cuda_flash_prefill_matches_plain(cuda, b, s, h, hkv, dh, causal,
-                                          window, dtype):
-    rng = np.random.default_rng(b * s + dh)
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
-        np.float32)).to(cuda, dtype) for shape in
-        ((b, s, h, dh), (b, s, hkv, dh), (b, s, hkv, dh)))
+    "b,s,skv,h,hkv,dh,causal,window,layout",
+    [(1, 128, 128, 4, 4, 64, True, None, "dense"),
+     (2, 256, 256, 8, 2, 64, True, None, "dense"),
+     (2, 256, 256, 8, 2, 64, True, 64, "dense"),
+     (1, 128, 128, 4, 1, 32, False, None, "dense"),
+     (2, 192, 192, 6, 2, 80, True, None, "dense"),
+     (1, 100, 100, 32, 8, 80, False, 16, "dense"),
+     (2, 300, 300, 10, 2, 64, True, 64, "dense"),      # G 5
+     (1, 200, 200, 12, 2, 128, True, None, "dense"),   # G 6, Dh 128
+     (1, 70, 70, 48, 1, 128, True, None, "dense"),     # G 48, Dh 128
+     (1, 257, 257, 4, 2, 32, True, None, "dense"),     # S % 128 != 0
+     (2, 150, 150, 8, 2, 80, True, 40, "dense"),
+     (2, 100, 333, 8, 2, 64, False, None, "dense"),    # Skv > S
+     (2, 300, 77, 10, 2, 80, False, None, "dense"),    # Skv < S
+     (1, 256, 100, 4, 2, 64, True, 32, "dense"),       # rows see no key
+     (4, 200, 200, 10, 2, 64, True, None, "head_slice"),
+     (2, 130, 130, 6, 3, 80, True, None, "offset_slice"),
+     (2, 2048, 2048, 8, 2, 64, True, None, "dense"),   # items > SMs
+     (1, 1500, 1500, 12, 2, 128, True, 256, "dense")])
+def test_cuda_flash_prefill_matches_plain(cuda, b, s, skv, h, hkv, dh,
+                                          causal, window, layout, dtype):
+    """The contiguous entry (bf16: the wgmma body, float32: the CUDA-core
+    body) at chip_smoke.py's FLASH_SWEEP and FLASH_CASES: G 1-48, Dh 32 /
+    64 / 80 / 128, S not a multiple of the 128-row tile, Skv above and
+    below S, rows that see no key (zeros), and K/V as strided views: a head
+    slice (TMA) and a column slice 2 bytes off alignment (staged through
+    registers); more items than the card has SMs, the last round
+    partial."""
+    rng = np.random.default_rng(b * s + dh + skv)
+
+    def kv():
+        wide = {"head_slice": (b, skv, hkv + 2, dh),
+                "offset_slice": (b, skv, hkv, dh + 8)}.get(
+                    layout, (b, skv, hkv, dh))
+        t = torch.from_numpy(rng.standard_normal(wide).astype(
+            np.float32)).to(cuda, dtype)
+        if layout == "head_slice":
+            return t[:, :, 1:hkv + 1]
+        return t[..., 1:dh + 1] if layout == "offset_slice" else t
+
+    q = torch.from_numpy(rng.standard_normal((b, s, h, dh)).astype(
+        np.float32)).to(cuda, dtype)
+    k, v = kv(), kv()
     before = flash_prefill.launches
     got = flash_prefill(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -245,6 +278,14 @@ def test_cuda_flash_prefill_matches_plain(cuda, b, s, h, hkv, dh, causal,
     want = tref.flash_prefill(q, k, v, causal=causal, window=window)
     tol = F32 if dtype == torch.float32 else BF16
     torch.testing.assert_close(got.float(), want.float(), **tol)
+    qpos = torch.arange(s, device=cuda)[:, None]
+    kpos = torch.arange(skv, device=cuda)[None]
+    seen = torch.ones((s, skv), dtype=torch.bool, device=cuda)
+    if causal:
+        seen &= kpos <= qpos
+    if window is not None:
+        seen &= kpos > qpos - window
+    assert (got[:, ~seen.any(-1)] == 0).all()
 
 
 @pytest.mark.gpu

@@ -51,14 +51,26 @@ def _pair(a, dtype):
         (2, 256, 8, 2, 64, 128, 64, True, 64),
         (1, 128, 4, 1, 32, 32, 32, False, None),
         (2, 192, 6, 2, 80, 64, 64, True, None),  # non-pow2 heads/dh
+        # the shapes the card holds the CUDA kernel to (``s`` as (S, Skv)
+        # where the two differ): G 5, 6 and 48, Dh 128, non-causal over
+        # Skv != S, and causal Skv < S with a window, where queries 79..127
+        # see no key and return zeros
+        pytest.param(1, 128, 10, 2, 64, 64, 64, True, 32, id="g5"),
+        pytest.param(1, 64, 6, 1, 128, 64, 64, True, None, id="g6-dh128"),
+        pytest.param(1, 64, 48, 1, 128, 32, 32, True, None, id="g48-dh128"),
+        pytest.param(2, (64, 96), 4, 2, 64, 64, 32, False, None,
+                     id="noncausal-skv96"),
+        pytest.param(1, (128, 64), 4, 2, 64, 64, 64, True, 16,
+                     id="causal-skv64-window16"),
     ])
 def test_plain_flash_prefill_matches_pallas_and_oracle(b, s, h, hkv, dh, qb,
                                                        kb, causal, window,
                                                        dtype):
+    s, skv = s if isinstance(s, tuple) else (s, s)
     rng = np.random.default_rng(b * s + dh)
     (jq, tq), (jk, tk), (jv, tv) = (
         _pair(rng.standard_normal(shape).astype(np.float32), dtype)
-        for shape in ((b, s, h, dh), (b, s, hkv, dh), (b, s, hkv, dh)))
+        for shape in ((b, s, h, dh), (b, skv, hkv, dh), (b, skv, hkv, dh)))
     got = tref.flash_prefill(tq, tk, tv, causal=causal, window=window)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     pallas = ops.flash_prefill(jq, jk, jv, causal=causal, window=window,
@@ -67,6 +79,8 @@ def test_plain_flash_prefill_matches_pallas_and_oracle(b, s, h, hkv, dh, qb,
     tol = F32 if dtype == "float32" else BF16
     np.testing.assert_allclose(_np(got.float()), _np(pallas), **tol)
     np.testing.assert_allclose(_np(got.float()), _np(oracle), **tol)
+    if causal and window and skv < s:  # queries past skv - 1 + window
+        assert (got[:, skv - 1 + window:] == 0).all()
     # the wrapper takes the plain version for CPU tensors, and counts no
     # launch
     before = tflash.flash_prefill.launches
