@@ -944,8 +944,7 @@ def ssd_phase(dev):
 
 # -- serve phase ------------------------------------------------------------------
 
-# the serve phase's engine geometry and traffic; benchmarks/
-# torch_decode_profile.py imports both, so that it profiles the same run
+# the serve phase's engine geometry and traffic
 SERVE_ENGINE = dict(num_pages=1024, page_size=PS, max_slots=8,
                     max_tokens_per_iter=512)
 

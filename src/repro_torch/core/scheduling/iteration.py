@@ -355,10 +355,10 @@ class IterationScheduler:
         if lease is not None:
             lease.release()
             if tr is not None:
-                tr.instant("lease", "release", rid=req.request_id, ts=now,
+                tr.instant("lease", "release", rid=req.request_id,
                            tokens=lease.num_tokens, cause="finish")
         if tr is not None:
-            tr.end("request", "req", req.request_id, ts=now,
+            tr.end("request", "req", req.request_id,
                    reason=req.finish_reason, generated=req.n_generated)
         if req.request_id in self.tables:
             table = self.tables[req.request_id]
@@ -942,8 +942,7 @@ class IterationScheduler:
             if req.first_token_time is None:
                 req.first_token_time = now
                 if tr is not None:
-                    tr.instant("req", "first_token", rid=req.request_id,
-                               ts=now)
+                    tr.instant("req", "first_token", rid=req.request_id)
             # adopt the prompt's full pages into the radix tree as soon as
             # their KV exists — waiting for request completion would make
             # every member of a same-prefix burst recompute the shared

@@ -1,12 +1,12 @@
 """Unified telemetry: structured event tracing, per-iteration metric
 timelines, and Chrome/Perfetto trace export for the serving stack."""
 
-from .tracer import Event, Tracer, merge_events
-from .metrics import Histogram, MetricsRegistry, percentile
+from .tracer import (Event, Tracer, keep_profiled, last_profiled,
+                     merge_events, profiler_clock)
+from .metrics import MetricsRegistry, percentile
 from .export import (
     export_chrome_trace,
     export_metrics_csv,
-    export_metrics_json,
     to_chrome_trace,
     validate_swap_balance,
     validate_trace_events,
@@ -15,13 +15,14 @@ from .export import (
 __all__ = [
     "Event",
     "Tracer",
+    "keep_profiled",
+    "last_profiled",
     "merge_events",
-    "Histogram",
+    "profiler_clock",
     "MetricsRegistry",
     "percentile",
     "export_chrome_trace",
     "export_metrics_csv",
-    "export_metrics_json",
     "to_chrome_trace",
     "validate_swap_balance",
     "validate_trace_events",

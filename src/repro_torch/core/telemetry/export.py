@@ -4,9 +4,10 @@ Trace-event mapping (see the Trace Event Format spec the Chrome tools
 consume): timestamps are microseconds; ``pid`` is the serving instance
 (one process track per instance, named via ``M`` metadata); complete
 (``X``) events carry ``dur``; per-request spans use async-nestable
-``b``/``e`` pairs matched on (cat, id); counter (``C``) events render as
-stacked area tracks. Open the output in https://ui.perfetto.dev or
-``chrome://tracing``.
+``b``/``e`` pairs matched on (cat, id). A wall-clock engine's timestamps
+are microseconds of the Unix epoch, on ``torch.profiler``'s clock, so the
+export lines up with a profile of the same run. Open the output in
+https://ui.perfetto.dev or ``chrome://tracing``.
 
 ``validate_trace_events`` is the structural schema check shared by the
 ``tools/validate_trace.py`` CLI and the exporter golden tests.
@@ -18,8 +19,7 @@ import csv
 import json
 from typing import Dict, Iterable, List, Optional
 
-from .tracer import Event, PH_BEGIN, PH_COMPLETE, PH_COUNTER, PH_END, \
-    PH_INSTANT
+from .tracer import Event, PH_BEGIN, PH_COMPLETE, PH_END, PH_INSTANT
 
 _S_TO_US = 1e6
 
@@ -46,12 +46,10 @@ def to_chrome_trace(events: Iterable[Event]) -> dict:
             # async-nestable span keyed by request id
             te["id"] = e.rid if e.rid is not None else 0
         args: Dict[str, object] = dict(e.args) if e.args else {}
-        if e.ph != PH_COUNTER:
-            if e.rid is not None:
-                args.setdefault("rid", e.rid)
-            args.setdefault("iteration", e.it)
-        if args:
-            te["args"] = args
+        if e.rid is not None:
+            args.setdefault("rid", e.rid)
+        args.setdefault("iteration", e.it)
+        te["args"] = args
         out.append(te)
     # name the per-instance process tracks
     for inst in sorted(instances):
@@ -101,14 +99,6 @@ def export_metrics_csv(timelines: Dict[int, List[Dict[str, float]]],
         w = csv.DictWriter(f, fieldnames=lead + keys, restval="")
         w.writeheader()
         w.writerows(rows)
-    return len(rows)
-
-
-def export_metrics_json(timelines: Dict[int, List[Dict[str, float]]],
-                        path: str) -> int:
-    rows = _flatten_timelines(timelines)
-    with open(path, "w") as f:
-        json.dump(rows, f)
     return len(rows)
 
 

@@ -4,7 +4,7 @@ The registry is the numeric companion to the event tracer: where the
 tracer answers *why* (which request triggered the preemption), the metrics
 timeline answers *how much over time* (KV utilization, backlog tokens,
 budget fill, hit rates) — one row per engine ``step()``, exportable as CSV
-or JSON for plotting.
+for plotting.
 
 ``percentile`` is also the single home for the nearest-rank percentile
 used by ``ServiceStats`` and ``SimResult`` (previously hand-rolled in
@@ -14,7 +14,7 @@ both, with undefined behavior on empty input).
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Sequence
 
 
 def percentile(values: Sequence[float], q: float) -> float:
@@ -33,37 +33,9 @@ def percentile(values: Sequence[float], q: float) -> float:
     return sorted(values)[idx]
 
 
-class Histogram:
-    """A value reservoir summarized by count/sum/min/max and nearest-rank
-    percentiles. Unbounded on purpose — per-run observation counts here
-    are request-scale (thousands), not token-scale."""
-
-    __slots__ = ("values",)
-
-    def __init__(self):
-        self.values: List[float] = []
-
-    def observe(self, v: float) -> None:
-        self.values.append(v)
-
-    def summary(self) -> Dict[str, float]:
-        vs = self.values
-        if not vs:
-            return {"count": 0}
-        return {
-            "count": len(vs),
-            "sum": sum(vs),
-            "min": min(vs),
-            "max": max(vs),
-            "p50": percentile(vs, 50),
-            "p90": percentile(vs, 90),
-            "p99": percentile(vs, 99),
-        }
-
-
 class MetricsRegistry:
-    """Counters (cumulative), gauges (last value), histograms (reservoir),
-    snapshotted into a timeline row per iteration.
+    """Counters (cumulative) and gauges (last value), snapshotted into a
+    timeline row per iteration.
 
     Like the tracer, the registry is held as ``None`` when telemetry is
     off — callers guard with one attribute test, so the disabled path
@@ -73,7 +45,6 @@ class MetricsRegistry:
     def __init__(self):
         self.counters: Dict[str, float] = {}
         self.gauges: Dict[str, float] = {}
-        self.histograms: Dict[str, Histogram] = {}
         self.timeline: List[Dict[str, float]] = []
 
     def count(self, name: str, delta: float = 1.0) -> None:
@@ -81,12 +52,6 @@ class MetricsRegistry:
 
     def gauge(self, name: str, value: float) -> None:
         self.gauges[name] = value
-
-    def observe(self, name: str, value: float) -> None:
-        h = self.histograms.get(name)
-        if h is None:
-            h = self.histograms[name] = Histogram()
-        h.observe(value)
 
     def snapshot(self, ts: float, iteration: int) -> Dict[str, float]:
         """Append one timeline row: current gauges + cumulative counters."""
@@ -98,6 +63,3 @@ class MetricsRegistry:
 
     def rows(self) -> List[Dict[str, float]]:
         return self.timeline
-
-    def summaries(self) -> Dict[str, Dict[str, float]]:
-        return {name: h.summary() for name, h in self.histograms.items()}

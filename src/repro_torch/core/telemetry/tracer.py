@@ -13,16 +13,25 @@ Design constraints:
 * **No cost when off.** Tracing is opt-in per backend; when disabled the
   backend holds ``trace = None`` and every emission site is guarded with a
   single attribute test — no event object, argument dict, or string is ever
-  constructed. ``tools/validate_trace.py --check-disabled-overhead``
-  asserts this structurally (zero allocations attributed to this module).
+  constructed. ``tests/test_torch_engine_spans.py`` asserts this for the
+  engine (zero allocations attributed to this package over its steps).
 * **Bounded memory.** Events land in a fixed-capacity ring; once full the
   oldest events are overwritten (``dropped`` counts them). Exporters see
   events in emission order.
-* **Clock-agnostic.** Every event is stamped through the owner's clock:
-  a virtual-clock backend passes its ``clock`` callable (sim traces are
-  perfectly reproducible — no wall time anywhere), a wall-clock engine
-  updates the ``now`` attribute at each ``step``. A cluster router merges
-  per-child tracers onto one timeline by sorting on these timestamps.
+* **One clock per owner.** Every event is stamped through the owner's
+  clock when it happens: a virtual-clock backend passes its ``clock``
+  callable (sim traces are perfectly reproducible — no wall time
+  anywhere); a wall-clock owner takes the default, :func:`profiler_clock`,
+  the clock ``torch.profiler`` stamps its host events with, so an engine's
+  spans lie on the same time line as a profile's device operations. A
+  cluster router merges per-child tracers onto one timeline by sorting on
+  these timestamps.
+* **Reachable after a profile.** A tracer that recorded while a
+  ``torch.profiler`` session was on is handed to :func:`keep_profiled`;
+  :func:`last_profiled` returns the newest of them, not emptied, after its
+  owner is gone (a benchmark reads the spans once its engine is freed).
+  One is kept, until a newer one replaces it, for the life of the
+  process.
 
 Event vocabulary (``cat``/``name``; ``args`` carry cause attribution):
 
@@ -61,22 +70,48 @@ Event vocabulary (``cat``/``name``; ``args`` carry cause attribution):
                       span per request, begun at the prefill host's clock
                       (``src``/``dst``/``mode``/``pages``) and ended at
                       the decode host's once the transfer is charged
-``engine``            per-iteration ``iteration`` complete events (one
-                      track per instance), engine ``chunk`` executions
+``engine``            nested complete spans of a wall-clock engine's step
+                      (one track per instance), each with ``span`` and
+                      ``parent`` ids in its args: ``iteration`` (the root;
+                      ``decode_rows``, ``chunks``, ``prefill_tokens``) >
+                      ``schedule`` (``preempted``), ``chunk`` (per prefill
+                      chunk, ``rid``; ``start``, ``length``, ``last``) >
+                      ``chunk.inputs``, ``chunk.layers``, ``sample``;
+                      ``decode.inputs`` (``width``; twice: the block
+                      tables, then their copies), ``decode.layers``,
+                      ``sample`` (``rows``) > ``sample.launch``,
+                      ``sample.wait`` (the copies of the tokens to the
+                      host, the step's one wait on the device); ``emit``
+                      (``finished``). ``deliver``
+                      (``chunks``), a root of its own, is
+                      ``LLMService.poll`` building what it hands back; a
+                      virtual-clock backend's ``iteration`` is one flat
+                      event
+``req``               (also) ``delivered``: ``LLMService.poll`` handed a
+                      request its first token; ``first_token`` is stamped
+                      when that token was sampled
 ====================  =====================================================
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Iterator, List, Optional
 
 # Chrome trace-event phases used here: X=complete, i=instant,
-# b/e=async span begin/end, C=counter, M=metadata (added by the exporter)
+# b/e=async span begin/end, M=metadata (added by the exporter)
 PH_COMPLETE = "X"
 PH_INSTANT = "i"
 PH_BEGIN = "b"
 PH_END = "e"
-PH_COUNTER = "C"
+
+
+def profiler_clock() -> float:
+    """Seconds of the Unix epoch (``time.time_ns``): the clock that
+    ``torch.profiler`` stamps host events with (a profile's
+    ``kineto_results.trace_start_ns()`` plus an event's ``time_range``, in
+    ns). As a float it resolves about 0.24 us."""
+    return time.time_ns() / 1e9
 
 
 class Event:
@@ -112,34 +147,33 @@ class Tracer:
     assigns ``instance`` ids and merges buffers at export.
 
     ``clock``: callable returning the owner's current time in seconds
-    (virtual clocks pass their own — sim traces never touch wall time).
-    ``None`` means the owner updates :attr:`now` explicitly (wall-clock
-    engines set it to the caller-supplied ``now`` each ``step``).
-    ``iteration`` is likewise owner-updated per step so every event carries
-    the iteration it belongs to.
+    (virtual clocks pass their own — sim traces never touch wall time);
+    wall-clock owners keep the default, :func:`profiler_clock`.
+    ``iteration`` is owner-updated per step so every event carries the
+    iteration it belongs to.
     """
 
     def __init__(self, capacity: int = 131_072, *,
-                 clock: Optional[Callable[[], float]] = None,
+                 clock: Callable[[], float] = profiler_clock,
                  instance: int = 0):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.capacity = capacity
         self.clock = clock
         self.instance = instance
-        self.now = 0.0
         self.iteration = 0
         self._buf: List[Event] = []
         self._head = 0  # next overwrite slot once the ring is full
         self.dropped = 0
         self.emitted = 0
+        # open spans, innermost last: (id, parent id, cat, name, rid, start)
+        self._open: List[tuple] = []
+        self._spans = 0  # the last span id handed out
 
     # -- emission ---------------------------------------------------------------
 
     def _ts(self, ts: Optional[float]) -> float:
-        if ts is not None:
-            return ts
-        return self.clock() if self.clock is not None else self.now
+        return self.clock() if ts is None else ts
 
     def _push(self, ev: Event) -> None:
         self.emitted += 1
@@ -174,11 +208,27 @@ class Tracer:
         self._push(Event(self._ts(ts), cat, name, PH_END, self.instance,
                          rid, self.iteration, None, args or None))
 
-    def counter(self, name: str, *, ts: Optional[float] = None,
-                **values) -> None:
-        """A counter-track sample (rendered as stacked area in Perfetto)."""
-        self._push(Event(self._ts(ts), "metrics", name, PH_COUNTER,
-                         self.instance, None, self.iteration, None, values))
+    def enter(self, cat: str, name: str, *, rid: Optional[int] = None,
+              root: bool = False) -> None:
+        """Open a span on the instance track, inside the innermost open one;
+        :meth:`exit` closes it. ``root`` first drops any span that an
+        exception left open."""
+        t0 = self.clock()
+        if root:
+            self._open.clear()
+        self._spans += 1
+        parent = self._open[-1][0] if self._open else None
+        self._open.append((self._spans, parent, cat, name, rid, t0))
+
+    def exit(self, **args) -> None:
+        """Close the innermost open span as a complete event, with ``args``
+        (the counters at its end) and its ``span`` and ``parent`` ids."""
+        t1 = self.clock()
+        sid, parent, cat, name, rid, t0 = self._open.pop()
+        args["span"] = sid
+        args["parent"] = parent
+        self._push(Event(t0, cat, name, PH_COMPLETE, self.instance, rid,
+                         self.iteration, t1 - t0, args))
 
     # -- access -----------------------------------------------------------------
 
@@ -191,6 +241,22 @@ class Tracer:
 
     def __iter__(self) -> Iterator[Event]:
         return iter(self.events())
+
+
+_profiled: Optional[Tracer] = None
+
+
+def keep_profiled(tracer: Tracer) -> None:
+    """Keep ``tracer`` reachable as the newest that recorded under a
+    ``torch.profiler`` session (see the module's docstring)."""
+    global _profiled
+    _profiled = tracer
+
+
+def last_profiled() -> Optional[Tracer]:
+    """The tracer kept by :func:`keep_profiled`, or None; its events stay
+    in it."""
+    return _profiled
 
 
 def merge_events(tracers) -> List[Event]:

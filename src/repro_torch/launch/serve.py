@@ -263,11 +263,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="enable telemetry and export a Chrome/Perfetto "
                          "trace-event JSON (open in ui.perfetto.dev or "
-                         "chrome://tracing) after the run")
+                         "chrome://tracing) after the run; an engine's "
+                         "trace carries each step's phases, in epoch us on "
+                         "torch.profiler's clock")
     ap.add_argument("--metrics-csv", metavar="PATH", default=None,
                     help="enable telemetry and dump per-iteration metric "
-                         "timelines (one row per instance-iteration) as "
-                         "CSV after the run")
+                         "timelines (one row per instance-iteration, ts on "
+                         "the trace's clock) as CSV after the run")
     return ap
 
 

@@ -329,12 +329,18 @@ class LLMService:
         finished = self.backend.step(t)
         chunks: Dict[int, CompletionChunk] = {}
         tnow = self.backend.clock()
+        # a backend that recorded its step's spans records the delivery too
+        tr = getattr(self.backend, "recording", None) if collect else None
+        if tr is not None:
+            tr.enter("engine", "deliver", root=True)
         if collect:
             for rid, st in self._live.items():
                 if st.finished:
                     continue
                 total = st.req.full_output
                 if len(total) > st.reported:
+                    if tr is not None and st.reported == 0:
+                        tr.instant("req", "delivered", rid=rid)
                     # stream per-token logprobs with the tokens when the
                     # backend scores them (req.logprobs stays aligned with
                     # full_output across preemptions)
@@ -355,6 +361,8 @@ class LLMService:
                 ch.finished = True
                 ch.finish_reason = req.finish_reason
             self._maybe_complete_family(st.parent_id)
+        if tr is not None:
+            tr.exit(chunks=len(chunks))
         stepped = iters_before is not None and \
             getattr(self.backend, "iterations", None) != iters_before
         self._progressed = bool(chunks) or bool(finished) or injected \

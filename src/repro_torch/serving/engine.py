@@ -130,7 +130,8 @@ from repro_torch.core.paging.layout import KVPageLayout, check_schema
 from repro_torch.core.prefixcache.radix import PrefixCache
 from repro_torch.core.scheduling.iteration import IterationScheduler
 from repro_torch.core.scheduling.request import Request
-from repro_torch.core.telemetry import MetricsRegistry, Tracer
+from repro_torch.core.telemetry import MetricsRegistry, Tracer, \
+    keep_profiled
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_prefill import prefill_attention_paged
 from repro_torch.kernels.paged_attention import paged_attention
@@ -151,6 +152,17 @@ def _pow2_bucket(n: int, floor: int = 8) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def _to_device(x, dev, dtype=None) -> torch.Tensor:
+    """``x`` (an array or a list) as a tensor on ``dev``. A CUDA copy is
+    staged through pinned memory, so the host does not wait for the stream
+    to drain first, as a copy from pageable memory does: a step waits on
+    the card only for its sampled tokens (``sample.wait``)."""
+    t = torch.as_tensor(x, dtype=dtype)
+    if dev.type == "cuda":
+        t = t.pin_memory().to(dev, non_blocking=True)
+    return t
 
 
 @dataclasses.dataclass
@@ -188,7 +200,8 @@ class EngineConfig:
     # budget, drawn from the same host_pages pool) instead of dying — a
     # later match restores them instead of recomputing
     cache_spill_pages: int = 0
-    # structured event tracing + per-iteration metric timelines
+    # structured event tracing + per-iteration metric timelines (a step
+    # also records its spans while a torch.profiler session is on)
     enable_telemetry: bool = False
 
 
@@ -282,6 +295,11 @@ class PagedEngine:
         else:
             self.trace = None
             self.metrics = None
+        # the tracer the last step recorded its spans into, or None: the
+        # telemetry's, or while a torch.profiler session is on, with
+        # telemetry off, one of the engine's own for profiles
+        self.recording: Optional[Tracer] = None
+        self._profile_trace: Optional[Tracer] = None
         # cluster serving: reader(home) -> (k_pages, v_pages) of a creditor
         # engine, wired by RouterBackend for zero-copy leases
         self.remote_reader = None
@@ -367,21 +385,26 @@ class PagedEngine:
         experts' place order, so they never move a real token's place: the
         count alone is passed, the chunk is not padded.
         """
+        tr = self.recording
+        if tr is not None:
+            tr.enter("engine", "chunk.inputs")
         cfg, ps, dev = self.cfg, self.ecfg.page_size, self.device
         s = len(tokens)
         r_base = lease.num_tokens if lease is not None else 0
-        toks = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
-        pages = torch.as_tensor(np.asarray(page_ids, np.int32), device=dev)
+        toks = _to_device(np.asarray(tokens, np.int64), dev)
+        pages = _to_device(np.asarray(page_ids, np.int32), dev)
         idx = pages.long()[None]
         positions = start + torch.arange(s, device=dev)
         tok_pages = pages.long()[(positions - r_base) // ps]
         in_page = (positions - r_base) % ps
         if lease is not None:
             home_a, home_b = self.remote_reader(lease.home)
-            lease_idx = torch.as_tensor(lease.blocks, device=dev)[None]
+            lease_idx = _to_device(lease.blocks, dev, torch.int64)[None]
             key_pos = r_base + torch.arange(idx.shape[1] * ps, device=dev)
             mask_l = (positions[:, None] >= key_pos[None, :])[None]
             mask_r = torch.ones(1, s, r_base, dtype=torch.bool, device=dev)
+        if tr is not None:
+            tr.exit()
 
         def attention(seg, li, *args):
             if self.flavor == "gqa":
@@ -412,6 +435,8 @@ class PagedEngine:
             ctx = merge_partials_tree(*zip(*parts))
             return ctx[..., :cfg.kv_lora_rank].to(q_lat.dtype)
 
+        if tr is not None:
+            tr.enter("engine", "chunk.layers")
         x = embed(self.params["embed"], toks[None])  # (1, s, d)
         s_pad = _pow2_bucket(s)
         for seg, li, p in self.model.layers(self.params):
@@ -420,6 +445,8 @@ class PagedEngine:
         x = rms_norm(self.params["final_norm"], x[:, -1:], cfg.norm_eps)
         logits = unembed(self.params["embed"], x, cfg.vocab_size,
                          fp32=cfg.logits_fp32)
+        if tr is not None:
+            tr.exit()
         self.prefill_chunks += 1
         self.leased_chunks += lease is not None
         return logits[0, 0]
@@ -454,25 +481,29 @@ class PagedEngine:
         with its ``(m, l)``, for MLA through the plain float32 partial
         over the gathered latent.
         """
+        tr = self.recording
+        if tr is not None:
+            tr.enter("engine", "decode.inputs")
         cfg, ecfg, dev = self.cfg, self.ecfg, self.device
         n, ps = len(tokens), ecfg.page_size
-        toks = torch.as_tensor(tokens, device=dev)
-        pos = torch.as_tensor(positions, dtype=torch.int64, device=dev)
-        bt = torch.as_tensor(block_tables, dtype=torch.int32, device=dev)
-        lens = torch.as_tensor(ctx_lens, dtype=torch.int32, device=dev)
+        toks = _to_device(tokens, dev)
+        pos = _to_device(positions, dev, torch.int64)
+        bt = _to_device(block_tables, dev, torch.int32)
+        lens = _to_device(ctx_lens, dev, torch.int32)
         loc_pos, loc_lens = pos, lens
         if remote:
-            rb = torch.as_tensor(r_base, dtype=torch.int32, device=dev)
+            rb = _to_device(r_base, dev, torch.int32)
             loc_pos = (pos - rb).clamp_min(0)
             loc_lens = (lens - rb).clamp_min(0)
-            remote = [(home, torch.as_tensor(rbt, dtype=torch.int32,
-                                             device=dev),
-                       torch.as_tensor(rlens, dtype=torch.int32, device=dev))
+            remote = [(home, _to_device(rbt, dev, torch.int32),
+                       _to_device(rlens, dev, torch.int32))
                       for home, rbt, rlens in remote]
         page_slot = bt[torch.arange(n, device=dev), loc_pos // ps].long()
         page_slot = torch.where(lens > 0, page_slot,
                                 torch.full_like(page_slot, ecfg.num_pages))
         in_page = loc_pos % ps
+        if tr is not None:
+            tr.exit(width=bt.shape[1])
 
         def attention(seg, li, *args):
             if self.flavor == "gqa":
@@ -514,6 +545,8 @@ class PagedEngine:
             ctx = merge_partials_tree(*zip(*parts))
             return ctx[..., :cfg.kv_lora_rank].to(q_lat.dtype)
 
+        if tr is not None:
+            tr.enter("engine", "decode.layers")
         x = embed(self.params["embed"], toks[:, None])  # (n, 1, d)
         for seg, li, p in self.model.layers(self.params):
             x = self._layer(seg, li, p, x, pos[:, None], page_slot, in_page,
@@ -521,6 +554,8 @@ class PagedEngine:
         x = rms_norm(self.params["final_norm"], x, cfg.norm_eps)
         logits = unembed(self.params["embed"], x, cfg.vocab_size,
                          fp32=cfg.logits_fp32)[:, 0]
+        if tr is not None:
+            tr.exit()
         self.decode_steps += 1
         if remote:
             self.leased_decode_steps += 1
@@ -566,6 +601,10 @@ class PagedEngine:
     def _sample_rows(self, logits, reqs_by_row):
         """Fused per-slot sampling. ``reqs_by_row``: Request or None per
         row of ``logits``. Returns (tokens, logprobs) as numpy arrays."""
+        tr = self.recording
+        if tr is not None:
+            tr.enter("engine", "sample")
+            tr.enter("engine", "sample.launch")
         n = logits.shape[0]
         temp = np.zeros(n, np.float32)
         topk = np.zeros(n, np.int64)
@@ -585,12 +624,20 @@ class PagedEngine:
             steps[i] = req.total_generated
         dev = logits.device
         toks, lps = sampling.sample_batch(
-            logits, torch.as_tensor(seeds, device=dev),
-            torch.as_tensor(steps, device=dev),
-            torch.as_tensor(temp, device=dev),
-            torch.as_tensor(topk, device=dev),
-            torch.as_tensor(topp, device=dev))
-        return toks.cpu().numpy(), lps.cpu().numpy()
+            logits, *(_to_device(a, dev)
+                      for a in (seeds, steps, temp, topk, topp)))
+        if tr is not None:
+            tr.exit()
+            tr.enter("engine", "sample.wait")
+        # both copies queued, then one wait for the stream
+        toks, lps = (t.to("cpu", non_blocking=True) for t in (toks, lps))
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        out = toks.numpy(), lps.numpy()
+        if tr is not None:
+            tr.exit()
+            tr.exit(rows=n)
+        return out
 
     def _sample_one(self, req: Request, logits_row):
         toks, lps = self._sample_rows(logits_row[None], [req])
@@ -610,11 +657,15 @@ class PagedEngine:
         """Run ONE iteration (ORCA's unit of scheduling)."""
         now = time.monotonic() if now is None else now
         tr = self.trace
-        t_wall0 = 0.0
+        if torch.autograd._profiler_enabled():
+            if tr is None:
+                tr = self._profile_trace = self._profile_trace or Tracer()
+            keep_profiled(tr)
+        self.recording = tr
         if tr is not None:
-            tr.now = now
             tr.iteration = self.iterations
-            t_wall0 = time.monotonic()
+            tr.enter("engine", "iteration", root=True)
+            tr.enter("engine", "schedule")
         # a speculative swap-out issued last iteration resolves in this
         # schedule(): its pages may be handed on only after its copy
         self._join_swaps()
@@ -634,17 +685,23 @@ class PagedEngine:
             if req.output:
                 self.last_token[slot] = req.output[-1]
         if plan.empty:
+            if tr is not None:
+                tr.exit(preempted=len(plan.preempted))
             # a self-preempted request can leave an otherwise-empty plan:
             # run completion anyway (the scheduler's preemption budget)
-            return self.scheduler.complete_iteration(plan, now) \
+            finished = self.scheduler.complete_iteration(plan, now) \
                 if plan.preempted else []
+            self._end_iteration(tr, plan, now)
+            return finished
         # COW: copy replaced shared pages before anything writes this
         # iteration (the gather on the right copies before the write)
         if plan.cow:
-            old = torch.as_tensor([o for o, _ in plan.cow], device=self.device)
-            new = torch.as_tensor([w for _, w in plan.cow], device=self.device)
+            old = self._index([o for o, _ in plan.cow])
+            new = self._index([w for _, w in plan.cow])
             self.k_pages[:, new] = self.k_pages[:, old]
             self.v_pages[:, new] = self.v_pages[:, old]
+        if tr is not None:
+            tr.exit(preempted=len(plan.preempted))
 
         # --- prefill chunks (initiation phase) ---
         forked: List[Request] = []
@@ -666,26 +723,31 @@ class PagedEngine:
                 self._check_zero_copy_ok()
                 lease = self._checked_lease(req.request_id)
             n_ctx_pages = -(-(ch.end - r_base) // ps)  # ceil, local pages
-            t_chunk0 = time.monotonic() if tr is not None else 0.0
+            if tr is not None:
+                tr.enter("engine", "chunk", rid=req.request_id)
             logits = self._prefill_chunk(req.prompt[ch.start:ch.end],
                                          table.blocks[:n_ctx_pages],
                                          ch.start, lease)
-            if tr is not None:
-                tr.complete("engine", "chunk", rid=req.request_id,
-                            ts=now + (t_chunk0 - t_wall0),
-                            dur=time.monotonic() - t_chunk0,
-                            start=ch.start, length=ch.length,
-                            last=ch.is_last)
             if ch.is_last:
                 tok, lp = self._sample_one(req, logits)
+                if req.first_token_time is None:
+                    # the value complete_iteration would stamp; the
+                    # instant marks when the token was sampled
+                    req.first_token_time = now
+                    if tr is not None:
+                        tr.instant("req", "first_token", rid=req.request_id)
                 self._emit(req, slot, tok, lp, now)
                 forked.extend(self._fork_children(req, logits, now))
+            if tr is not None:
+                tr.exit(start=ch.start, length=ch.length, last=ch.is_last)
 
         # best-of-n children join the plan so completion sees them
         plan.prefill.extend(forked)
 
         # --- fused decode step (increment phase) ---
         if plan.decode:
+            if tr is not None:
+                tr.enter("engine", "decode.inputs")
             n = self.ecfg.max_slots
             width = max(len(self.scheduler.tables[r.request_id].blocks)
                         for r in plan.decode)
@@ -719,23 +781,35 @@ class PagedEngine:
                 # ride along with r_base = 0
                 self._check_zero_copy_ok()
                 remote = self._remote_tables(row_reqs)
+            if tr is not None:
+                tr.exit(width=width)
             logits = self._decode(toks, pos, bt, lens, rbase, remote)
             sampled, lps = self._sample_rows(logits, row_reqs)
-            for req in plan.decode:
-                slot = self.slots[req.request_id]
-                self._emit(req, slot, int(sampled[slot]), float(lps[slot]),
-                           now)
 
+        if tr is not None:
+            tr.enter("engine", "emit")
+        for req in plan.decode:
+            slot = self.slots[req.request_id]
+            self._emit(req, slot, int(sampled[slot]), float(lps[slot]), now)
         finished = self.scheduler.complete_iteration(plan, now)
         for req in finished:
             if req.request_id in self.slots:
                 self.free_slots.append(self.slots.pop(req.request_id))
         if tr is not None:
-            dur = time.monotonic() - t_wall0
-            tr.complete("engine", "iteration", ts=now, dur=dur,
-                        tokens=plan.token_count(),
-                        decodes=len(plan.decode), chunks=len(plan.chunks))
-            m = self.metrics
+            tr.exit(finished=len(finished))
+        self._end_iteration(tr, plan, now)
+        self.iterations += 1
+        return finished
+
+    def _end_iteration(self, tr: Optional[Tracer], plan, now: float) -> None:
+        """Close the step's ``iteration`` span and, with telemetry on, take
+        the metrics' row of this iteration."""
+        if tr is None:
+            return
+        tr.exit(decode_rows=len(plan.decode), chunks=len(plan.chunks),
+                prefill_tokens=sum(c.length for c in plan.chunks))
+        m = self.metrics
+        if m is not None:
             m.gauge("kv_util_frac",
                     self.allocator.num_used / self.allocator.num_blocks)
             m.gauge("prefill_backlog_tokens",
@@ -759,10 +833,7 @@ class PagedEngine:
             m.count("swap_ins", len(plan.swap_in))
             m.count("swap_issues", len(plan.swap_issue))
             m.count("swap_cancels", len(plan.swap_cancel))
-            m.observe("iteration_time_s", dur)
-            m.snapshot(now, self.iterations)
-        self.iterations += 1
-        return finished
+            m.snapshot(tr.clock(), self.iterations)
 
     def _fork_children(self, parent: Request, logits, now) -> List[Request]:
         """COW-fork best-of-n siblings off ``parent``'s fresh prefill: each
@@ -778,10 +849,10 @@ class PagedEngine:
                 self.slots[child.request_id] = slot
                 child.scheduled_time = now
                 child.first_token_time = now
-                if self.trace is not None:
-                    self.trace.instant("req", "first_token",
-                                       rid=child.request_id)
                 tok, lp = self._sample_one(child, logits)
+                if self.recording is not None:
+                    self.recording.instant("req", "first_token",
+                                           rid=child.request_id)
                 self._emit(child, slot, tok, lp, now)
                 forked.append(child)
             else:
@@ -832,10 +903,7 @@ class PagedEngine:
         """``ids`` as an int64 index on the engine's device; on a CUDA
         engine staged through pinned memory, so the host does not wait for
         the copy (it runs on the current stream)."""
-        t = torch.tensor(ids, dtype=torch.int64)
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return _to_device(ids, self.device, torch.int64)
 
     @staticmethod
     def _runs(hosts):

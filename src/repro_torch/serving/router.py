@@ -83,7 +83,8 @@ from repro_torch.core.distkv.gmanager import GManager, Heartbeat
 from repro_torch.core.distkv.netmodel import NetworkModel
 from repro_torch.core.distkv.rmanager import RManager
 from repro_torch.core.scheduling.request import Request
-from repro_torch.core.telemetry import Tracer, merge_events
+from repro_torch.core.telemetry import Tracer, merge_events, \
+    profiler_clock
 from repro_torch.serving.disagg import (HANDOFF_MODES, InstanceSpec, KVHandoff,
                                   parse_role_spec)
 
@@ -376,10 +377,10 @@ class RouterBackend:
                 if t is not None:
                     t.instance = i
             # with all-virtual children clock() is the cluster frontier;
-            # with wall-clock children it is None — router events then sit
-            # at t=0 unless stamped explicitly (add_request passes ts)
+            # wall-clock engines stamp on the profiler's clock, and so
+            # does the router beside them
             self.trace = Tracer(
-                clock=lambda: self.clock() or 0.0,
+                clock=self.clock if self._virtual else profiler_clock,
                 instance=len(self.children))
             self.g.prefix_board.trace = self.trace
             for i, rm in self.rms.items():
@@ -743,11 +744,9 @@ class RouterBackend:
             # before the request exists
             child.advance_to(req.arrival_time)
         if self.trace is not None:
-            clk = child.clock()
             self.trace.instant(
                 "router", "place", rid=req.request_id,
-                ts=clk if clk is not None else req.arrival_time,
-                instance=i,
+                ts=child.clock() if self._virtual else None, instance=i,
                 policy=getattr(self.policy, "name",
                                type(self.policy).__name__))
         child.add_request(req)

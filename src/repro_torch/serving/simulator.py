@@ -539,7 +539,6 @@ class SimBackend:
             m.count("swap_ins", len(plan.swap_in))
             m.count("swap_issues", len(plan.swap_issue))
             m.count("swap_cancels", len(plan.swap_cancel))
-            m.observe("iteration_time_s", self._now - t_start)
             m.snapshot(self._now, self.iterations)
         self.iterations += 1
         self.peak_memory_frac = max(

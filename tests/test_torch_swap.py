@@ -267,13 +267,27 @@ def test_swap_modes_match_jax(setup, mode):
         assert issues
         assert len(run.moved("swap_complete")) + \
             len(run.moved("swap_cancel")) == len(issues)
-    # cumulative counters; as in the reference, an iteration that computes
-    # nothing (a swap-in alone) takes no snapshot
-    names = ("swap_outs", "swap_ins", "swap_issues", "swap_cancels",
-             "swapped_pages", "swap_pending_pages")
-    rows = [[{k: r[k] for k in names} for r in e.metrics.rows()]
-            for e in (je, te)]
-    assert rows[1] == rows[0] and rows[1][-1]["swap_outs"] > 0
+    # cumulative counters. An iteration that computes nothing (a swap-in
+    # alone) takes a row on the port; the reference takes none and counts
+    # none of its moves. So the port's rows count every move, and its rows
+    # of the computing iterations are the reference's plus the moves of the
+    # swap-only iterations before them
+    counters = ("swap_outs", "swap_ins", "swap_issues", "swap_cancels")
+    gauges = ("swapped_pages", "swap_pending_pages")
+    extra = dict.fromkeys(counters, 0.0)
+    computing, prev = [], dict.fromkeys(counters + ("tokens",), 0.0)
+    for r in te.metrics.rows():
+        if r["tokens"] == prev["tokens"]:
+            for k in counters:
+                extra[k] += r[k] - prev[k]
+        else:
+            computing.append({**{k: r[k] - extra[k] for k in counters},
+                              **{g: r[g] for g in gauges}})
+        prev = r
+    assert computing == [{k: r[k] for k in counters + gauges}
+                         for r in je.metrics.rows()]
+    assert (prev["swap_outs"], prev["swap_ins"]) == \
+        (te.swapped_out, te.swapped_in)
     _assert_trace_ok([te])
     _assert_drained([je, te])
 
