@@ -78,7 +78,9 @@ Event vocabulary (``cat``/``name``; ``args`` carry cause attribution):
                       chunk, ``rid``; ``start``, ``length``, ``last``) >
                       ``chunk.inputs``, ``chunk.layers``, ``sample``;
                       ``decode.inputs`` (``width``; twice: the block
-                      tables, then their copies), ``decode.layers``,
+                      tables, then their copies), ``decode.layers``
+                      (``graphed``: 1 where the step replayed the
+                      piecewise CUDA graphs),
                       ``sample`` (``rows``) > ``sample.launch``,
                       ``sample.wait`` (the copies of the tokens to the
                       host, the step's one wait on the device); ``emit``

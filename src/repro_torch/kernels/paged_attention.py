@@ -93,9 +93,12 @@ def _check(q, k_pages, v_pages, block_tables, context_lens, page_size):
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
                     page_size: int, window: Optional[int] = None,
-                    return_partials: bool = False):
+                    return_partials: bool = False,
+                    out: Optional[torch.Tensor] = None):
     """Decode attention over a paged KV cache. Arguments and results as
-    :func:`repro_torch.kernels.ref.paged_attention`.
+    :func:`repro_torch.kernels.ref.paged_attention`; ``out``, where given,
+    receives the result (a contiguous tensor of q's shape, dtype and
+    device) and is returned in its place.
 
     On CUDA: q, the pools and the output share one dtype (float32 or
     bfloat16); the pools may be any strided view with a unit head_dim
@@ -109,16 +112,28 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     if window is not None and window < 1:
         raise ValueError(f"paged_attention: window must be >= 1, got "
                          f"{window}")
+    if out is not None and (out.shape != q.shape or out.dtype != q.dtype
+                            or out.device != q.device
+                            or not out.is_contiguous()):
+        raise ValueError("paged_attention: out must be a contiguous tensor "
+                         f"of q's shape, dtype and device, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
     if q.is_cpu:
-        return ref.paged_attention(q, k_pages, v_pages, block_tables,
-                                   context_lens, page_size=page_size,
-                                   window=window,
-                                   return_partials=return_partials)
+        res = ref.paged_attention(q, k_pages, v_pages, block_tables,
+                                  context_lens, page_size=page_size,
+                                  window=window,
+                                  return_partials=return_partials)
+        if out is None:
+            return res
+        if return_partials:
+            return (out.copy_(res[0]),) + res[1:]
+        return out.copy_(res)
     if not q.is_cuda:
         raise ValueError(f"paged_attention: no kernel for {q.device}")
     _check(q, k_pages, v_pages, block_tables, context_lens, page_size)
     b, h, dh = q.shape
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
     split = max(1, SPLIT_TOKENS // page_size) * page_size
     splits = max(1, -(-block_tables.shape[1] * page_size // split))
     # one float32 scratch: the returned m and l, then per split the

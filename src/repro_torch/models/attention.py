@@ -179,6 +179,14 @@ def gqa_layer(cfg, p, x, positions, attend, mlp_fn=None):
     residual attention, pre-norm residual MLP. ``mlp_fn(p_mlp, h) -> out``
     overrides the dense MLP (MoE segments pass their expert dispatch).
     """
+    return gqa_layer_out(cfg, p, x, attend(*gqa_layer_qkv(cfg, p, x,
+                                                          positions)),
+                         mlp_fn)
+
+
+def gqa_layer_qkv(cfg, p, x, positions):
+    """:func:`gqa_layer` up to its attention: the pre-norm and the
+    projections, q and k roped. Returns (q, k, v)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     hn = rms_norm(p["ln1"], x, cfg.norm_eps)
@@ -187,7 +195,13 @@ def gqa_layer(cfg, p, x, positions, attend, mlp_fn=None):
     v = dense(p["attn"]["wv"], hn).reshape(b, s, hkv, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    ctx = attend(q, k, v)
+    return q, k, v
+
+
+def gqa_layer_out(cfg, p, x, ctx, mlp_fn=None):
+    """:func:`gqa_layer` after its attention: the output projection of the
+    context ``ctx`` (B, S, H, Dv), the residual, and the residual MLP."""
+    b, s, _ = x.shape
     y = x + dense(p["attn"]["wo"], ctx.reshape(b, s, -1))
     h2 = rms_norm(p["ln2"], y, cfg.norm_eps)
     y = y + (mlp(p["mlp"], h2) if mlp_fn is None else mlp_fn(p["mlp"], h2))

@@ -24,7 +24,10 @@ Per iteration (continuous batching):
    :func:`repro_torch.kernels.paged_attention.paged_attention`, which
    launches the CUDA kernel for CUDA tensors and runs its plain version for
    CPU tensors, and sampling is fused over the slots with per-slot
-   parameters.
+   parameters. On the card a dense GQA stack's step replays the work
+   between its attention calls from piecewise CUDA graphs
+   (:mod:`repro_torch.serving.decode_graphs`), ``paged_attention`` still
+   called between the pieces.
 
 **MLA** (deepseek-v2): the two pools hold the shared latent instead of
 per-head K/V, ``ckv`` (L, P+1, ps, r) in ``k_pages`` and ``krope`` (L, P+1,
@@ -143,6 +146,7 @@ from repro_torch.models.layers import embed, rms_norm, unembed
 from repro_torch.models.moe import moe_forward
 from repro_torch.models.transformer import Model, seg_window
 from repro_torch.serving.api import SamplingParams
+from repro_torch.serving.decode_graphs import DecodeGraphs
 
 
 def _pow2_bucket(n: int, floor: int = 8) -> int:
@@ -154,14 +158,19 @@ def _pow2_bucket(n: int, floor: int = 8) -> int:
     return p
 
 
-def _to_device(x, dev, dtype=None) -> torch.Tensor:
-    """``x`` (an array or a list) as a tensor on ``dev``. A CUDA copy is
-    staged through pinned memory, so the host does not wait for the stream
-    to drain first, as a copy from pageable memory does: a step waits on
-    the card only for its sampled tokens (``sample.wait``)."""
+def _to_device(x, dev, dtype=None, out=None) -> torch.Tensor:
+    """``x`` (an array or a list) as a tensor on ``dev``, or copied into
+    ``out`` there. A CUDA copy is staged through pinned memory, so the host
+    does not wait for the stream to drain first, as a copy from pageable
+    memory does: a step waits on the card only for its sampled tokens
+    (``sample.wait``)."""
     t = torch.as_tensor(x, dtype=dtype)
     if dev.type == "cuda":
-        t = t.pin_memory().to(dev, non_blocking=True)
+        t = t.pin_memory()
+        if out is None:
+            return t.to(dev, non_blocking=True)
+    if out is not None:
+        return out.copy_(t, non_blocking=True)
     return t
 
 
@@ -277,6 +286,10 @@ class PagedEngine:
         self.iterations = 0
         self.preemptions = 0
         self.decode_steps = 0  # batched decode calls (one per iteration)
+        # decode calls that replayed the piecewise graphs, and those graphs
+        # (captured at the first such call)
+        self.graph_decode_steps = 0
+        self._graphs: Optional[DecodeGraphs] = None
         self.prefill_chunks = 0  # prefill chunk calls
         # zero-copy leases: chunks that attended over a lease (plain
         # partials, no prefill kernel), decode steps that merged remote
@@ -451,9 +464,28 @@ class PagedEngine:
         self.leased_chunks += lease is not None
         return logits[0, 0]
 
+    def _eager_reason(self, n: int, remote) -> Optional[str]:
+        """Why a decode step of ``n`` rows with the remote partials
+        ``remote`` runs its layers eagerly, or None where it replays the
+        piecewise graphs (:mod:`repro_torch.serving.decode_graphs`): those
+        hold a dense GQA stack's step on the card at the engine's slots,
+        with one local ``paged_attention`` call a layer."""
+        if self.flavor != "gqa":
+            return self.flavor
+        kinds = {seg.mlp_kind for seg in self.model.plan} - {"dense"}
+        if kinds:
+            return f"{min(kinds)} MLP"
+        if remote:
+            return "remote partials"
+        if n != self.ecfg.max_slots:
+            return "rows"
+        if self.device.type != "cuda":
+            return self.device.type
+        return None
+
     @torch.no_grad()
     def _decode(self, tokens, positions, block_tables, ctx_lens,
-                r_base=None, remote=()):
+                r_base=None, remote=(), *, eager: bool = False):
         """Batched one-token step over all slots.
 
         tokens, positions, ctx_lens: (n,) with ctx_len 0 for an inactive
@@ -466,6 +498,15 @@ class PagedEngine:
         V). Every row goes through a MoE layer's routing, inactive ones
         too, as in the reference: they take places in the experts'
         capacity.
+
+        A dense GQA step on the card at the engine's slots, with no remote
+        partials (:meth:`_eager_reason`), replays the piecewise CUDA graphs
+        of :class:`~repro_torch.serving.decode_graphs.DecodeGraphs`,
+        captured at its first such step: the same operations on the same
+        shapes, each layer's ``paged_attention`` still called between the
+        pieces with the step's own block tables. Every other step runs the
+        layers eagerly, and so does every step with ``eager`` (the graphed
+        path's oracle).
 
         Zero-copy leases, as the reference's ``_decode_zc_fn``
         (``repro/serving/engine.py:540-636``): ``r_base`` (n,) is the
@@ -486,32 +527,48 @@ class PagedEngine:
             tr.enter("engine", "decode.inputs")
         cfg, ecfg, dev = self.cfg, self.ecfg, self.device
         n, ps = len(tokens), ecfg.page_size
-        toks = _to_device(tokens, dev)
-        pos = _to_device(positions, dev, torch.int64)
+        graphs = None
+        if not eager and self._eager_reason(n, remote) is None:
+            if self._graphs is None:
+                self._graphs = DecodeGraphs(self, n)
+            graphs = self._graphs
+            # the write slots on the host, from the tables already there
+            pos = np.asarray(positions, np.int64)
+            slot = np.where(np.asarray(ctx_lens) > 0,
+                            np.asarray(block_tables)[np.arange(n), pos // ps],
+                            ecfg.num_pages)
+            _to_device(np.stack([np.asarray(tokens, np.int64), pos, slot,
+                                 pos % ps]), dev, out=graphs.inputs)
+        else:
+            toks = _to_device(tokens, dev)
+            pos = _to_device(positions, dev, torch.int64)
         bt = _to_device(block_tables, dev, torch.int32)
         lens = _to_device(ctx_lens, dev, torch.int32)
-        loc_pos, loc_lens = pos, lens
-        if remote:
-            rb = _to_device(r_base, dev, torch.int32)
-            loc_pos = (pos - rb).clamp_min(0)
-            loc_lens = (lens - rb).clamp_min(0)
-            remote = [(home, _to_device(rbt, dev, torch.int32),
-                       _to_device(rlens, dev, torch.int32))
-                      for home, rbt, rlens in remote]
-        page_slot = bt[torch.arange(n, device=dev), loc_pos // ps].long()
-        page_slot = torch.where(lens > 0, page_slot,
-                                torch.full_like(page_slot, ecfg.num_pages))
-        in_page = loc_pos % ps
+        if graphs is None:
+            loc_pos, loc_lens = pos, lens
+            if remote:
+                rb = _to_device(r_base, dev, torch.int32)
+                loc_pos = (pos - rb).clamp_min(0)
+                loc_lens = (lens - rb).clamp_min(0)
+                remote = [(home, _to_device(rbt, dev, torch.int32),
+                           _to_device(rlens, dev, torch.int32))
+                          for home, rbt, rlens in remote]
+            page_slot = bt[torch.arange(n, device=dev), loc_pos // ps].long()
+            page_slot = torch.where(lens > 0, page_slot,
+                                    torch.full_like(page_slot,
+                                                    ecfg.num_pages))
+            in_page = loc_pos % ps
         if tr is not None:
             tr.exit(width=bt.shape[1])
 
-        def attention(seg, li, *args):
+        def attention(seg, li, *args, out=None):
             if self.flavor == "gqa":
                 q, kp, vp = args
                 q1 = q[:, 0]
                 if not remote:
                     att = paged_attention(q1, kp, vp, bt, lens, page_size=ps,
-                                          window=seg_window(cfg, seg))
+                                          window=seg_window(cfg, seg),
+                                          out=out)
                     return att.reshape(n, 1, cfg.num_heads, cfg.head_dim)
                 sources = [(kp, vp, bt, loc_lens)]
                 for home, t, c in remote:
@@ -547,16 +604,20 @@ class PagedEngine:
 
         if tr is not None:
             tr.enter("engine", "decode.layers")
-        x = embed(self.params["embed"], toks[:, None])  # (n, 1, d)
-        for seg, li, p in self.model.layers(self.params):
-            x = self._layer(seg, li, p, x, pos[:, None], page_slot, in_page,
-                            attention, self._mlp_fn(seg))
-        x = rms_norm(self.params["final_norm"], x, cfg.norm_eps)
-        logits = unembed(self.params["embed"], x, cfg.vocab_size,
-                         fp32=cfg.logits_fp32)[:, 0]
+        if graphs is not None:
+            logits = graphs.run(attention)
+        else:
+            x = embed(self.params["embed"], toks[:, None])  # (n, 1, d)
+            for seg, li, p in self.model.layers(self.params):
+                x = self._layer(seg, li, p, x, pos[:, None], page_slot,
+                                in_page, attention, self._mlp_fn(seg))
+            x = rms_norm(self.params["final_norm"], x, cfg.norm_eps)
+            logits = unembed(self.params["embed"], x, cfg.vocab_size,
+                             fp32=cfg.logits_fp32)[:, 0]
         if tr is not None:
-            tr.exit()
+            tr.exit(graphed=int(graphs is not None))
         self.decode_steps += 1
+        self.graph_decode_steps += graphs is not None
         if remote:
             self.leased_decode_steps += 1
             self.remote_partials += len(remote)

@@ -866,6 +866,81 @@ def test_cuda_paths_launch_the_kernels(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", ["paper-opt-13b", "h2o-danube-1.8b"])
+def test_cuda_graph_decode_equals_eager(cuda, arch, dtype):
+    """The paged GQA decode step replayed from its piecewise CUDA graphs
+    against the eager layers on the same engine state (OPT-shaped, and
+    danube-shaped with its window of 64): every step's logits and the
+    pools it leaves are the same bits, through rows joining and leaving,
+    tables widening over page boundaries, preemption with recompute and a
+    COW fork. ``paged_attention`` is still launched once per layer and
+    step; without the oracle every decode step is a graphed one."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+    from test_torch_decode_graphs import ECFG, checked_against_eager, \
+        serve_scenario
+
+    cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+    engine = PagedEngine(cfg, init_params(cfg, 0, device=cuda),
+                         EngineConfig(**ECFG), device=cuda)
+    L = cfg.num_layers
+    launches = paged_attention.launches
+    checked = checked_against_eager(engine)
+    serve_scenario(engine)
+    assert engine.preemptions > 0
+    assert len(checked) >= 20 and all(checked)
+    assert engine._graphs.graphs is not None
+    assert engine.decode_steps == 2 * len(checked)
+    assert paged_attention.launches - launches == L * engine.decode_steps
+    del engine._decode  # the engine alone
+    steps, graphed = engine.decode_steps, engine.graph_decode_steps
+    launches = paged_attention.launches
+    outs = serve_scenario(engine)
+    torch.cuda.synchronize()
+    steps = engine.decode_steps - steps
+    assert steps > 0 and engine.graph_decode_steps - graphed == steps
+    assert paged_attention.launches - launches == L * steps
+    assert all(0 <= t < cfg.vocab_size for o in outs for s in o.samples
+               for t in s.token_ids)
+
+
+@pytest.mark.gpu
+def test_cuda_graph_decode_skips_mla_and_leased_steps(cuda):
+    """An MLA engine never replays the graphs; behind a router with
+    zero-copy leases, an engine replays them on every decode step but those
+    that merge remote partials."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import smoke_config
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+    from test_torch_decode_graphs import ECFG, serve_scenario
+
+    cfg = smoke_config("deepseek-v2-236b")
+    engine = PagedEngine(cfg, init_params(cfg, 0, device=cuda),
+                         EngineConfig(**ECFG), device=cuda)
+    serve_scenario(engine)
+    assert engine.decode_steps > 0 and engine.graph_decode_steps == 0
+    assert engine._graphs is None
+
+    cfg = dataclasses.replace(smoke_config("h2o-danube-1.8b"),
+                              sliding_window=None)
+    rng = np.random.default_rng(23)
+    prefix = rng.integers(0, 512, 16).tolist()
+    prompts = [prefix + rng.integers(0, 512, n).tolist() for n in (3, 5, 21)]
+    _, engines = _zero_copy_runs(cfg, init_params(cfg, 0, device=cuda),
+                                 cuda, prompts, 6)
+    assert sum(e.leased_decode_steps for e in engines) > 0
+    assert sum(e.graph_decode_steps for e in engines) > 0
+    for e in engines:
+        assert e.graph_decode_steps == e.decode_steps - e.leased_decode_steps
+
+
+@pytest.mark.gpu
 def test_cuda_mla_engine_matches_cpu_engine(cuda):
     """deepseek-v2-236b at smoke size, float32, on the MLA engine: the
     card's greedy tokens equal the CPU engine's, through chunked prefill,

@@ -119,6 +119,16 @@ def test_step_spans_nest_as_the_tree(traced):
     assert kids["chunk"].count("chunk.layers") == engine.prefill_chunks
 
 
+def test_decode_layers_say_whether_the_step_was_graphed(traced):
+    """Each ``decode.layers`` span closes with ``graphed``: 0 on the CPU,
+    where no step replays the piecewise graphs."""
+    engine, events = traced
+    layers = [e for e in events if e.name == "decode.layers"]
+    assert len(layers) == engine.decode_steps > 0
+    assert {e.args["graphed"] for e in layers} == {0}
+    assert engine.graph_decode_steps == 0
+
+
 def test_first_token_and_delivery_share_the_request_id(traced):
     engine, events = traced
     spans = _spans(events)
