@@ -8,6 +8,14 @@ returns the reduced variant the CPU tests use (2 layers, d_model 256),
 built exactly as the reference builds it. Every arch of the reference has
 a module here: its ten ``ARCH_IDS`` and paper-opt-13b, which the
 reference has a module for but does not list.
+
+The port's own fields (:data:`PORT_FIELDS`: a per-layer mixer list, NoPE,
+a softmax scale, the embedding, residual and logits multipliers, the
+shared experts' width) come after the reference's, and their defaults
+leave every arch of the reference as it is; :func:`reference_fields` is
+a config without them, as the reference's ``ArchConfig`` holds it.
+:data:`PORT_ARCH_IDS` are the archs only the port has (granite-4.0-h-
+small: Mamba-2 and attention layers in one stack, each with a MoE).
 """
 
 from __future__ import annotations
@@ -87,9 +95,35 @@ class ArchConfig:
     # implementations; bf16 logits round near-ties onto the same value)
     logits_fp32: bool = False
 
+    # --- the port's own (PORT_FIELDS); the defaults change nothing ----------
+    # each layer's mixer as the published config names it ("mamba" or
+    # "attention"); None: every layer as ``family`` and ``attention`` say
+    layer_types: Optional[Tuple[str, ...]] = None
+    use_rope: bool = True  # False: NoPE (no rotary embedding at all)
+    attn_scale: Optional[float] = None  # softmax scale; None: 1/sqrt(Dh)
+    embedding_multiplier: float = 1.0  # the embedded tokens are scaled
+    # each block's output is scaled before it joins the residual stream
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0  # the logits are divided by it
+    shared_d_ff: int = 0  # shared experts' width; 0: num_shared x moe_d_ff
+
+    def __post_init__(self):
+        if self.layer_types is not None:  # a list (from JSON) as a tuple
+            object.__setattr__(self, "layer_types", tuple(self.layer_types))
+
     @property
     def attn_dim(self) -> int:
         return self.num_heads * self.head_dim
+
+    @property
+    def shared_width(self) -> int:
+        """The shared experts' one gated MLP's width (0: none)."""
+        return self.shared_d_ff or self.num_shared_experts * self.moe_d_ff
+
+    def mixer_of(self, layer: int) -> str:
+        """Layer ``layer``'s mixer in a ``layer_types`` stack: "ssm" or
+        "gqa"."""
+        return LAYER_MIXERS[self.layer_types[layer]]
 
     @property
     def ssm_heads(self) -> int:
@@ -137,9 +171,31 @@ class ArchConfig:
         return _count(self, active_only=True)
 
 
+# a published layer type -> the port's mixer
+LAYER_MIXERS = {"mamba": "ssm", "attention": "gqa"}
+# ArchConfig's fields that the reference's ArchConfig does not have
+PORT_FIELDS = ("layer_types", "use_rope", "attn_scale",
+               "embedding_multiplier", "residual_multiplier",
+               "logits_scaling", "shared_d_ff")
+
+
+def reference_fields(cfg: ArchConfig) -> dict:
+    """``dataclasses.asdict(cfg)`` without :data:`PORT_FIELDS`, each of
+    which must be at its default: the reference's ``ArchConfig`` of the
+    same arch holds exactly this."""
+    out = dataclasses.asdict(cfg)
+    for f in dataclasses.fields(ArchConfig):
+        if f.name in PORT_FIELDS:
+            if out.pop(f.name) != f.default:
+                raise ValueError(f"{cfg.arch_id}: {f.name} is the port's "
+                                 "own, and not at its default")
+    return out
+
+
 def _count(cfg: ArchConfig, active_only: bool) -> int:
     """The reference's parameter accounting (``configs/__init__.py:
-    138-197``), term for term."""
+    138-197``), term for term; a ``layer_types`` stack counts each layer's
+    own mixer, and the shared experts by their width."""
     d = cfg.d_model
     total = cfg.vocab_size * d  # embedding
     if not cfg.tie_embeddings:
@@ -178,16 +234,18 @@ def _count(cfg: ArchConfig, active_only: bool) -> int:
     per_layer = 0
     for layer in range(cfg.num_layers):
         p = 0
-        if cfg.family == "ssm":
+        if cfg.layer_types is not None:
+            p += ssm_params() if cfg.mixer_of(layer) == "ssm" \
+                else attn_params()
+        elif cfg.family == "ssm":
             p += ssm_params()
         elif cfg.is_hybrid:
             p += attn_params() + ssm_params()
         else:
             p += attn_params()
         if cfg.is_moe and layer >= cfg.first_k_dense:
-            e = (cfg.num_shared_experts + cfg.moe_top_k) if active_only \
-                else (cfg.num_shared_experts + cfg.num_experts)
-            p += e * mlp_params(cfg.moe_d_ff)
+            e = cfg.moe_top_k if active_only else cfg.num_experts
+            p += e * mlp_params(cfg.moe_d_ff) + mlp_params(cfg.shared_width)
             p += d * cfg.num_experts  # router
         elif cfg.d_ff:
             p += mlp_params(cfg.d_ff)
@@ -265,6 +323,10 @@ ARCH_IDS = [
     "seamless-m4t-medium",
     "internvl2-26b",
 ]
+# archs the reference package has no module for
+PORT_ARCH_IDS = [
+    "granite-4.0-h-small",
+]
 
 
 def _module_name(arch_id: str) -> str:
@@ -272,9 +334,9 @@ def _module_name(arch_id: str) -> str:
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id not in ARCH_IDS:
+    if arch_id not in ARCH_IDS + PORT_ARCH_IDS:
         raise ValueError(f"unknown arch {arch_id!r} (known: "
-                         f"{', '.join(ARCH_IDS)})")
+                         f"{', '.join(ARCH_IDS + PORT_ARCH_IDS)})")
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG
@@ -312,4 +374,10 @@ def smoke_config(arch_id: str) -> ArchConfig:
         updates.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=32)
     if cfg.sliding_window:
         updates.update(sliding_window=64)
+    if cfg.layer_types is not None:
+        # one layer of each kind, in the order the stack first has them
+        kinds = tuple(dict.fromkeys(cfg.layer_types))
+        updates.update(layer_types=kinds, num_layers=len(kinds))
+    if cfg.shared_d_ff:
+        updates.update(shared_d_ff=2 * updates.get("moe_d_ff", cfg.moe_d_ff))
     return dataclasses.replace(cfg, **updates)

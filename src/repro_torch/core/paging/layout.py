@@ -75,14 +75,19 @@ class KVPageLayout:
 
     @classmethod
     def from_arch(cls, cfg) -> "KVPageLayout":
-        """Derive the layout from an ``ArchConfig``."""
+        """Derive the layout from an ``ArchConfig``. A stack that lists its
+        layers' mixers (``layer_types``) pages only its attention layers:
+        the others keep no KV."""
+        types = getattr(cfg, "layer_types", None)
+        layers = cfg.num_layers if types is None \
+            else sum(t == "attention" for t in types)
         if getattr(cfg, "attention", None) == "mla":
             pools = (PoolSpec("ckv", (cfg.kv_lora_rank,)),
                      PoolSpec("krope", (cfg.qk_rope_head_dim,)))
-            return cls("mla", pools, cfg.dtype, cfg.num_layers)
+            return cls("mla", pools, cfg.dtype, layers)
         pools = (PoolSpec("k", (cfg.num_kv_heads, cfg.head_dim)),
                  PoolSpec("v", (cfg.num_kv_heads, cfg.head_dim)))
-        return cls("gqa", pools, cfg.dtype, cfg.num_layers)
+        return cls("gqa", pools, cfg.dtype, layers)
 
     # -- byte accounting ----------------------------------------------------
     @property

@@ -80,7 +80,14 @@ Event vocabulary (``cat``/``name``; ``args`` carry cause attribution):
                       ``decode.inputs`` (``width``; twice: the block
                       tables, then their copies), ``decode.layers``
                       (``graphed``: 1 where the step replayed the
-                      piecewise CUDA graphs),
+                      piecewise CUDA graphs); in either layers span, an
+                      SSM layer's ``ssm.mixer`` (``phase`` chunk with
+                      ``tokens``, or decode with ``rows``) > ``ssm.scan``
+                      (a chunk's scan: ``tokens``, ``heads``,
+                      ``head_dim``, ``state``, ``groups``, ``chunk``,
+                      ``carried``) or ``ssm.update`` (a decode step's
+                      conv, state update and readout: ``rows``,
+                      ``active``),
                       ``sample`` (``rows``) > ``sample.launch``,
                       ``sample.wait`` (the copies of the tokens to the
                       host, the step's one wait on the device); ``emit``

@@ -84,7 +84,15 @@
 //
 // Every loop over P and N is bounded by the runtime sizes (P <= 64,
 // N <= 128), so mamba2's P 64 / N 128 and hymba's P 50 / N 16 both work,
-// and any chunk that divides l (a partial last row tile is zero-filled).
+// and any chunk (a partial last row tile is zero-filled).
+//
+// Any length l: the last chunk may be short. Its rows past l read dt = 0
+// (and zeros for x, B and C), which is exact: their decay is exp(0) = 1 and
+// their contribution 0, so the state leaving the chunk is that after token
+// l - 1; no y row past l is written. An initial state (`carried`): the
+// `state` buffer holds it on entry, and the first chunk reads it as S_in,
+// as every later chunk reads its predecessor's (a serving engine's prompt
+// continued over several calls).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -148,6 +156,7 @@ struct Args {
   float* state;     // (b, h, p, n), contiguous
   int* sync;        // bf16 form: b*h chain flags, then the ticket (zeroed)
   int batch, l, H, P, G, N, chunk;
+  int carried;  // `state` holds the initial state on entry (else zeros)
   int64_t x_sb, x_sl, bc_sb, bc_sl;
   // bf16 form: tensor maps of x (H*P, l, b) and of B, C (G*N, l, b), used
   // where tma_x / tma_bc say the layout takes them
@@ -182,12 +191,18 @@ ssd_scan_f32_kernel(const Args a) {
                     (int64_t)gg * N;
   const float A = a.A[hh];
 
-  for (int i = tid; i < P * NP; i += kThreads) s_s[i] = 0.f;
+  const float* st_in = a.state + ((int64_t)bb * a.H + hh) * P * N;
+  for (int i = tid; i < P * NP; i += kThreads) {
+    const int p = i / NP, n = i - p * NP;
+    s_s[i] = a.carried && n < N ? st_in[p * N + n] : 0.f;
+  }
 
   const int ntiles = (L + kT - 1) / kT;
   for (int base = 0; base < a.l; base += L) {
+    const int Lv = min(L, a.l - base);  // rows of the chunk before l
     for (int t = tid; t < L; t += kThreads) {
-      const float d = a.dt[((int64_t)bb * a.l + base + t) * a.H + hh];
+      const float d =
+          t < Lv ? a.dt[((int64_t)bb * a.l + base + t) * a.H + hh] : 0.f;
       dt_s[t] = d;
       cum_s[t] = d * A;
     }
@@ -207,7 +222,7 @@ ssd_scan_f32_kernel(const Args a) {
       __syncthreads();  // c_s of the previous row tile is no longer read
       for (int e = tid; e < kT * N; e += kThreads) {
         const int i = e / N, n = e - i * N;
-        c_s[i * NP + n] = (i0 + i < L)
+        c_s[i * NP + n] = (i0 + i < Lv)
             ? cg[(int64_t)(base + i0 + i) * a.bc_sl + n] : 0.f;
       }
       __syncthreads();
@@ -247,12 +262,12 @@ ssd_scan_f32_kernel(const Args a) {
         __syncthreads();  // b_s, x_s, sc_s of the previous j tile are free
         for (int e = tid; e < kT * N; e += kThreads) {
           const int j = e / N, n = e - j * N;
-          b_s[j * NP + n] = (j0 + j < L)
+          b_s[j * NP + n] = (j0 + j < Lv)
               ? bg[(int64_t)(base + j0 + j) * a.bc_sl + n] : 0.f;
         }
         for (int e = tid; e < kT * P; e += kThreads) {
           const int j = e / P, p = e - j * P;
-          x_s[e] = (j0 + j < L)
+          x_s[e] = (j0 + j < Lv)
               ? xg[(int64_t)(base + j0 + j) * a.x_sl + p] * dt_s[j0 + j]
               : 0.f;
         }
@@ -306,7 +321,7 @@ ssd_scan_f32_kernel(const Args a) {
         }
         if (last) {
           // S update: sum_j exp(cum_L - cum_j) xdt_j[p] B_j[n]
-          for (int j = 0; j < kT && j0 + j < L; ++j) {
+          for (int j = 0; j < kT && j0 + j < Lv; ++j) {
             const float w = expf(cum_last - cum_s[j0 + j]);
             float xv[kPC], bv[kNC];
 #pragma unroll
@@ -331,7 +346,7 @@ ssd_scan_f32_kernel(const Args a) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int i = i0 + ty + 16 * r;
-        if (i >= L) continue;
+        if (i >= Lv) continue;
         float* yr = a.y + (((int64_t)bb * a.l + base + i) * a.H + hh) * P;
 #pragma unroll
         for (int c = 0; c < kPC; ++c) {
@@ -536,6 +551,8 @@ ssd_scan_bf16_kernel(const __grid_constant__ Args a) {
   const int bb = bh / H, hh = bh - bb * H;
   const int gg = hh / (H / a.G);
   const int64_t t0 = (int64_t)c * L;  // the chunk's first token
+  const int Lv = (int)min((int64_t)L, a.l - t0);  // its rows before l
+  const bool has_in = c > 0 || a.carried;  // S_in: a predecessor's or given
 
   const bf16* xg = static_cast<const bf16*>(a.x) + bb * a.x_sb +
                    t0 * a.x_sl + (int64_t)hh * P;
@@ -558,10 +575,10 @@ ssd_scan_bf16_kernel(const __grid_constant__ Args a) {
     unsigned char* bt = b_s + buf * kBytesB;
     unsigned char* xt = x_s + buf * kBytesX;
     if (!tbc)
-      stage(bt, kRegionJ, kJ, bg + j0 * a.bc_sl, a.bc_sl, L - j0, N,
+      stage(bt, kRegionJ, kJ, bg + j0 * a.bc_sl, a.bc_sl, Lv - j0, N,
             nnk * 16);
     if (!tx)
-      stage(xt, kRegionJ, kJ, xg + j0 * a.x_sl, a.x_sl, L - j0, P, kMaxP);
+      stage(xt, kRegionJ, kJ, xg + j0 * a.x_sl, a.x_sl, Lv - j0, P, kMaxP);
     if (!tbc || !tx) tma::fence_proxy_async();
     if (tid == 0) {
       const int row = (int)t0 + j0;
@@ -593,7 +610,7 @@ ssd_scan_bf16_kernel(const __grid_constant__ Args a) {
       }
     } else {
       stage(c_s, kRegionC, kRows, cg + (int64_t)it * kRows * a.bc_sl,
-            a.bc_sl, L - it * kRows, N, nnk * 16);
+            a.bc_sl, Lv - it * kRows, N, nnk * 16);
       tma::fence_proxy_async();
       tma::mbar_arrive(&bar_s[kStages]);
     }
@@ -605,7 +622,7 @@ ssd_scan_bf16_kernel(const __grid_constant__ Args a) {
   const float A = a.A[hh];
   for (int i = tid; i < LP; i += kTc) {
     const float d =
-        i < L ? a.dt[((int64_t)bb * a.l + t0 + i) * H + hh] : 0.f;
+        i < Lv ? a.dt[((int64_t)bb * a.l + t0 + i) * H + hh] : 0.f;
     dt_s[i] = d;
     cum_s[i] = d * A;
   }
@@ -683,6 +700,8 @@ ssd_scan_bf16_kernel(const __grid_constant__ Args a) {
         }
       }
       __syncthreads();
+    }
+    if (has_in) {
       // every load first, so that their latencies overlap
 #pragma unroll
       for (int i = 0; i < kMaxN / 2; i += 2) {
@@ -715,7 +734,7 @@ ssd_scan_bf16_kernel(const __grid_constant__ Args a) {
         if (p < P && n < N) __stcg(sp, o0);
         if (p < P && n + 1 < N) __stcg(sp + 1, o1);
       }
-      if (c > 0) {
+      if (has_in) {
         uint32_t parts[kSplit][4];
         split_pack(s_in[i], s_in[i + 1], 0, parts);
 #pragma unroll
@@ -758,7 +777,7 @@ ssd_scan_bf16_kernel(const __grid_constant__ Args a) {
       load_c(it + 1);
       cum_a = cum_s[ia];
       cum_b = cum_s[ib];
-      if (c > 0) {
+      if (has_in) {
         // exp(cum_i) C_i S_in^T (m64 n64, k = n; B: the parts of S_in)
         pin(yacc);
         wg_fence();
@@ -860,7 +879,7 @@ ssd_scan_bf16_kernel(const __grid_constant__ Args a) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int i = half ? ib : ia;
-        if (i >= L) continue;
+        if (i >= Lv) continue;
         float* yr = a.y + ((((int64_t)bb * a.l + t0 + i) * H + hh) * P);
 #pragma unroll
         for (int nt = 0; nt < kMaxP / 8; ++nt) {
@@ -923,7 +942,8 @@ int launch_bf16(Args a, cudaStream_t stream) {
                             : (const void*)ssd_scan_bf16_kernel<false>;
   e = tma::allow_smem(kernel, smem);
   if (e != 0) return e;
-  const int64_t items = (int64_t)a.batch * (a.l / a.chunk) * a.H;
+  const int64_t items =
+      (int64_t)a.batch * ((a.l + a.chunk - 1) / a.chunk) * a.H;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   if (full)
     ssd_scan_bf16_kernel<true><<<(unsigned)items, kTc, smem, stream>>>(a);
@@ -937,21 +957,24 @@ int launch_bf16(Args a, cudaStream_t stream) {
 extern "C" {
 
 // dtype of x, B and C: 0 = float32, 1 = bfloat16. Requires P <= 64,
-// N <= 128, H % G == 0 and l % chunk == 0 (the wrapper checks). `sync`:
+// N <= 128, H % G == 0 and chunk >= 1 (the wrapper checks); any l. `sync`:
 // for bfloat16, batch * H + 1 int32 zeros (chain flags and the ticket);
-// unused for float32. Returns a cudaError_t (0 = launched).
+// unused for float32. `carried`: `state` holds the initial state (b, h, p,
+// n) on entry; else it is written only. Returns a cudaError_t (0 =
+// launched).
 int ssd_scan_fwd(const void* x, const float* dt, const float* A,
                  const void* B, const void* C, float* y, float* state,
                  int* sync, int batch, int l, int H, int P, int G, int N,
                  int chunk, int64_t x_sb, int64_t x_sl, int64_t bc_sb,
-                 int64_t bc_sl, int dtype, void* stream) {
-  if (P > kMaxP || N > kMaxN || G < 1 || H % G || chunk < 1 || l % chunk)
+                 int64_t bc_sl, int dtype, int carried, void* stream) {
+  if (P > kMaxP || N > kMaxN || G < 1 || H % G || chunk < 1)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x; a.dt = dt; a.A = A; a.B = B; a.C = C; a.y = y; a.state = state;
   a.sync = sync;
   a.batch = batch; a.l = l; a.H = H; a.P = P; a.G = G; a.N = N;
   a.chunk = chunk;
+  a.carried = carried;
   a.x_sb = x_sb; a.x_sl = x_sl; a.bc_sb = bc_sb; a.bc_sl = bc_sl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_f32(a, s);

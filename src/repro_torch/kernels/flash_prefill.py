@@ -98,7 +98,8 @@ def _raise_on(lib, err):
 
 
 def flash_prefill(q, k, v, *, causal: bool = True,
-                  window: Optional[int] = None):
+                  window: Optional[int] = None,
+                  scale: Optional[float] = None):
     """Flash-attention forward. Arguments and result as
     :func:`repro_torch.kernels.ref.flash_prefill`.
 
@@ -114,7 +115,8 @@ def flash_prefill(q, k, v, *, causal: bool = True,
     if window is not None and window < 1:
         raise ValueError(f"flash_prefill: window must be >= 1, got {window}")
     if q.device.type == "cpu":
-        return ref.flash_prefill(q, k, v, causal=causal, window=window)
+        return ref.flash_prefill(q, k, v, causal=causal, window=window,
+                                 scale=scale)
     _check_common("flash_prefill", q, k, v)
     b, s, h, dh = q.shape
     if k.dim() != 4 or k.shape[0] != b:
@@ -127,18 +129,20 @@ def flash_prefill(q, k, v, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, h, k.shape[2], dh, k.shape[1], int(causal),
             window or 0, k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2), 1.0 / dh ** 0.5,
-            _DTYPES[q.dtype])
+            v.stride(0), v.stride(1), v.stride(2),
+            1.0 / dh ** 0.5 if scale is None else scale, _DTYPES[q.dtype])
         _raise_on(lib, err)
         flash_prefill.launches += 1
     return out
 
 
 def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
-                            window: Optional[int] = None):
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None):
     """One engine prefill chunk's causal attention over a paged pool.
     Arguments and result as
-    :func:`repro_torch.kernels.ref.prefill_attention_paged`.
+    :func:`repro_torch.kernels.ref.prefill_attention_paged` (``scale`` the
+    softmax scale, 1/sqrt(Dh) where None).
 
     On CUDA: q a contiguous (1, S, H, Dh); the pools any (P, ps, Hkv, Dh)
     views with a unit head_dim stride (a layer slice of the engine's
@@ -155,7 +159,8 @@ def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
                          f"got {window}")
     if q.device.type == "cpu":
         return ref.prefill_attention_paged(q, k_pool, v_pool, page_ids,
-                                           q_offset=q_offset, window=window)
+                                           q_offset=q_offset, window=window,
+                                           scale=scale)
     fn = "prefill_attention_paged"
     _check_common(fn, q, k_pool, v_pool)
     _, s, h, dh = q.shape
@@ -173,12 +178,12 @@ def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
     out = torch.empty_like(q)
     if s:
         _launch_paged(q, k_pool, v_pool, page_ids, out, q_offset,
-                      q_offset + s, True, window)
+                      q_offset + s, True, window, scale)
     return out
 
 
 def _launch_paged(q, k_pool, v_pool, page_ids, out, q_offset, kv_len,
-                  causal, window):
+                  causal, window, scale=None):
     """One launch of the engine form over the first ``kv_len`` keys,
     checked by the caller."""
     lib = _lib()
@@ -190,13 +195,13 @@ def _launch_paged(q, k_pool, v_pool, page_ids, out, q_offset, kv_len,
         page_ids.data_ptr(), out.data_ptr(), s, h, k_pool.shape[2],
         dh, k_pool.shape[1], k_pool.shape[0], q_offset, kv_len, int(causal),
         window or 0, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-        1.0 / dh ** 0.5, _DTYPES[q.dtype])
+        1.0 / dh ** 0.5 if scale is None else scale, _DTYPES[q.dtype])
     _raise_on(lib, err)
     flash_prefill.launches += 1
 
 
 def prefill_attention(q, k, v, *, window: Optional[int] = None,
-                      causal: bool = True):
+                      causal: bool = True, scale: Optional[float] = None):
     """Attention of whole sequences, with ``blockwise_attention``'s
     numerics: causal self-attention (k, v of q's length), or with
     ``causal=False`` attention over every key of k, v of any length Skv.
@@ -226,7 +231,8 @@ def prefill_attention(q, k, v, *, window: Optional[int] = None,
                                               if causal else "") +
                          f", got {tuple(k.shape)}")
     if q.device.type == "cpu":
-        return ref.prefill_attention(q, k, v, window=window, causal=causal)
+        return ref.prefill_attention(q, k, v, window=window, causal=causal,
+                                     scale=scale)
     _check_common("prefill_attention", q, k, v)
     b, s = q.shape[:2]
     skv = k.shape[1]
@@ -235,7 +241,7 @@ def prefill_attention(q, k, v, *, window: Optional[int] = None,
         pages = torch.arange(b, dtype=torch.int32, device=q.device)
         for i in range(b):
             _launch_paged(q[i:i + 1], k, v, pages[i:i + 1], out[i:i + 1], 0,
-                          skv, causal, window)
+                          skv, causal, window, scale)
     return out
 
 

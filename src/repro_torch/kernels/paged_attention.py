@@ -94,9 +94,11 @@ def _check(q, k_pages, v_pages, block_tables, context_lens, page_size):
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
                     page_size: int, window: Optional[int] = None,
                     return_partials: bool = False,
-                    out: Optional[torch.Tensor] = None):
+                    out: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None):
     """Decode attention over a paged KV cache. Arguments and results as
-    :func:`repro_torch.kernels.ref.paged_attention`; ``out``, where given,
+    :func:`repro_torch.kernels.ref.paged_attention` (``scale`` the softmax
+    scale, 1/sqrt(Dh) where None); ``out``, where given,
     receives the result (a contiguous tensor of q's shape, dtype and
     device) and is returned in its place.
 
@@ -122,7 +124,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
         res = ref.paged_attention(q, k_pages, v_pages, block_tables,
                                   context_lens, page_size=page_size,
                                   window=window,
-                                  return_partials=return_partials)
+                                  return_partials=return_partials,
+                                  scale=scale)
         if out is None:
             return res
         if return_partials:
@@ -161,7 +164,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
             b, h, k_pages.shape[2], dh, page_size, k_pages.shape[0],
             ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
             block_tables.stride(0), window or 0, split, splits,
-            1.0 / dh ** 0.5, _DTYPES[q.dtype])
+            1.0 / dh ** 0.5 if scale is None else scale, _DTYPES[q.dtype])
         if err != 0:
             msg = lib.paged_attention_error_string(err).decode()
             raise RuntimeError(f"paged_attention kernel launch failed: "

@@ -6,6 +6,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.attention import blockwise_attention
 
@@ -14,8 +15,10 @@ NEG_INF = -1e30  # the Pallas kernel's mask value
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
                     page_size: int, window: Optional[int] = None,
-                    return_partials: bool = False):
-    """Decode attention over a paged KV cache, in float32.
+                    return_partials: bool = False,
+                    scale: Optional[float] = None):
+    """Decode attention over a paged KV cache, in float32, scores scaled
+    by ``scale`` (1/sqrt(Dh) where None).
 
     q: (B, H, Dh); pages: (P, ps, Hkv, Dh); block_tables: (B, n) int;
     context_lens: (B,) int. Key position ``pos`` of row ``b`` is valid iff
@@ -40,7 +43,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     if window is not None:
         valid &= pos[None, :] > lens - 1 - window
     qg = q.reshape(b, hkv, g, dh).float()
-    s = torch.einsum("bhgd,bshd->bhgs", qg, k) * (1.0 / dh ** 0.5)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k) * \
+        (1.0 / dh ** 0.5 if scale is None else scale)
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None]) * valid[:, None, None, :]
@@ -74,10 +78,12 @@ def merge_partials(os, ms, ls):
 
 
 def flash_prefill(q, k, v, *, causal: bool = True,
-                  window: Optional[int] = None):
+                  window: Optional[int] = None,
+                  scale: Optional[float] = None):
     """Flash-attention forward, as the Pallas kernel ``_flash_kernel``
     computes it: float32 math on upcast inputs, unrounded probabilities,
-    output in q's type.
+    output in q's type; scores scaled by ``scale`` (1/sqrt(Dh) where
+    None).
 
     q: (B, S, H, Dh); k, v: (B, Skv, Hkv, Dh), H a multiple of Hkv (GQA).
     Key ``k`` is valid for query ``i`` iff ``k <= i`` (causal) and, with a
@@ -89,7 +95,7 @@ def flash_prefill(q, k, v, *, causal: bool = True,
     g = h // hkv
     qg = q.reshape(b, s, hkv, g, dh).float()
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) \
-        * (1.0 / dh ** 0.5)
+        * (1.0 / dh ** 0.5 if scale is None else scale)
     qpos = torch.arange(s, device=q.device)
     kpos = torch.arange(skv, device=q.device)
     valid = torch.ones(s, skv, dtype=torch.bool, device=q.device)
@@ -106,7 +112,8 @@ def flash_prefill(q, k, v, *, causal: bool = True,
 
 
 def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
-                            window: Optional[int] = None):
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None):
     """One prefill chunk's causal attention over a paged KV pool, exactly
     as ``PagedEngine._prefill_chunk`` computed it before the kernel: gather
     the context pages, then ``models.attention.blockwise_attention`` with
@@ -127,36 +134,43 @@ def prefill_attention_paged(q, k_pool, v_pool, page_ids, *, q_offset: int,
     k = k_pool[idx].reshape(1, n * ps, hkv, dh)
     v = v_pool[idx].reshape(1, n * ps, hkv, dh)
     return blockwise_attention(q, k, v, causal=True, window=window,
-                               q_offset=q_offset)
+                               q_offset=q_offset, scale=scale)
 
 
 def prefill_attention(q, k, v, *, window: Optional[int] = None,
-                      causal: bool = True):
+                      causal: bool = True, scale: Optional[float] = None):
     """Attention of whole sequences, as the reference's ``Model.prefill``
     computes it: ``blockwise_attention`` (bf16 q, k, v and probabilities,
     float32 sums). q: (B, S, H, Dh); k, v: (B, Skv, Hkv, Dh), Skv = S when
     causal. Causal: key ``j`` is valid for query ``i`` iff ``j <= i`` and,
     with a window, ``j > i - window``; otherwise every key is valid (an
     encoder's self-attention, a decoder's cross-attention). Output in q's
-    type; zeros where there is no key."""
-    return blockwise_attention(q, k, v, causal=causal, window=window)
+    type; zeros where there is no key. ``scale``: the softmax scale,
+    1/sqrt(Dh) where None."""
+    return blockwise_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
 
 
-def ssd_scan(x, dt, A, B, C, *, chunk: int):
+def ssd_scan(x, dt, A, B, C, *, chunk: int, initial_state=None):
     """Mamba2 SSD chunked scan: the arithmetic of the Pallas kernel
     ``_ssd_kernel`` and of ``repro.models.ssm.ssd_chunked``, with the
     inter-chunk recurrence as a loop over chunks.
 
     x: (b, l, h, p) any float; dt: (b, l, h) float32 after softplus; A:
     (h,) float32, negative; B, C: (b, l, g, n), head ``i`` reading group
-    ``i // (h // g)``. ``l`` must be a multiple of ``chunk``. Returns y
-    (b, l, h, p) float32 and the final state (b, h, p, n) float32.
+    ``i // (h // g)``; ``initial_state`` (b, h, p, n), the state before
+    token 0 (zeros where None). Any ``l``: a short last chunk is padded
+    with dt = 0 and zeros, which is exact (its decay is 1 and its
+    contribution 0). Returns y (b, l, h, p) float32 and the final state
+    (b, h, p, n) float32.
     """
-    b, l, h, p = x.shape
+    b, l0, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    if l % chunk:
-        raise ValueError(f"ssd_scan: sequence {l} is not a multiple of "
-                         f"chunk {chunk}")
+    pad = -l0 % chunk
+    if pad:
+        x, dt, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                       for t in (x, dt, B, C))
+    l = l0 + pad
     nc, rep = l // chunk, h // g
     dt = dt.float()
     xdt = (x.float() * dt[..., None]).reshape(b, nc, chunk, h, p)
@@ -176,16 +190,17 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
     decay_out = torch.exp(a_cum[:, :, -1:, :] - a_cum)
     states = torch.einsum("bzlh,bzlhn,bzlhp->bzhpn", decay_out, Bh, xdt)
     chunk_decay = torch.exp(a_cum[:, :, -1, :])  # (b, nc, h)
-    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device) \
+        if initial_state is None else initial_state.float()
     decay_in = torch.exp(a_cum)
     for z in range(nc):
         y[:, z] += torch.einsum("blhn,blh,bhpn->blhp", Ch[:, z],
                                 decay_in[:, z], state)
         state = state * chunk_decay[:, z, :, None, None] + states[:, z]
-    return y.reshape(b, l, h, p), state
+    return y.reshape(b, l, h, p)[:, :l0], state
 
 
-def ssd_scan_ref(x, dt, A, B, C):
+def ssd_scan_ref(x, dt, A, B, C, initial_state=None):
     """Sequential SSD recurrence, one token at a time: the oracle of
     ``repro.kernels.ref.ssd_scan_ref``. Same arguments as
     :func:`ssd_scan` without ``chunk``; returns y and the final state."""
@@ -195,7 +210,8 @@ def ssd_scan_ref(x, dt, A, B, C):
     Bh = B.float().repeat_interleave(rep, dim=2)
     Ch = C.float().repeat_interleave(rep, dim=2)
     xf, dt = x.float(), dt.float()
-    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device) \
+        if initial_state is None else initial_state.float()
     ys = []
     for t in range(l):
         decay = torch.exp(dt[:, t] * A)

@@ -28,7 +28,7 @@ def _lib():
     if fn.argtypes is None:
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn.argtypes = [p, p, p, p, p, p, p, p, i32, i32, i32, i32, i32,
-                       i32, i32, i64, i64, i64, i64, i32, p]
+                       i32, i32, i64, i64, i64, i64, i32, i32, p]
         fn.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -64,10 +64,12 @@ def _check(x, dt, A, B, C):
                          "dim) axes")
 
 
-def ssd_scan(x, dt, A, B, C, *, chunk: int):
+def ssd_scan(x, dt, A, B, C, *, chunk: int, initial_state=None):
     """SSD chunked scan. Arguments and results as
     :func:`repro_torch.kernels.ref.ssd_scan`: y (b, l, h, p) float32 and the
-    final state (b, h, p, n) float32. Raises when ``l % chunk != 0``.
+    final state (b, h, p, n) float32, of any length ``l`` (a short last
+    chunk), from ``initial_state`` (b, h, p, n) float32 where given, else
+    from zeros. ``initial_state`` is read, not written.
 
     On CUDA: x, B and C share one dtype (float32 or bfloat16) and may be
     views with dense trailing (heads, dim) axes (a slice of the conv
@@ -77,25 +79,39 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
     _build.refuse_dtensor("ssd_scan", x, dt, A, B, C)
     b, l, h, p = x.shape
     n = B.shape[3]
-    if chunk < 1 or l % chunk:
-        raise ValueError(f"ssd_scan: sequence {l} is not a multiple of "
-                         f"chunk {chunk}")
-    for name, t in (("dt", dt), ("A", A), ("B", B), ("C", C)):
+    if chunk < 1:
+        raise ValueError(f"ssd_scan: chunk must be >= 1, got {chunk}")
+    named = (("dt", dt), ("A", A), ("B", B), ("C", C))
+    if initial_state is not None:
+        if initial_state.shape != (b, h, p, n) or \
+                initial_state.dtype != torch.float32:
+            raise ValueError(f"ssd_scan: initial_state must be a float32 "
+                             f"{(b, h, p, n)}, got {initial_state.dtype} "
+                             f"{tuple(initial_state.shape)}")
+        named += (("initial_state", initial_state),)
+    for name, t in named:
         if t.device != x.device:
             raise ValueError(f"ssd_scan: {name} is on {t.device}, x on "
                              f"{x.device}")
     if x.device.type == "cpu":
-        return ref.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        return ref.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                            initial_state=initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for {x.device}")
     _check(x, dt, A, B, C)
     y = torch.empty((b, l, h, p), dtype=torch.float32, device=x.device)
     if not (b and l and h):
         return y, torch.zeros((b, h, p, n), dtype=torch.float32,
-                              device=x.device)
-    # the kernel writes all of the state; the bf16 form chains it from
-    # chunk to chunk through per-(b, h) flags and a ticket, zeroed here
-    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+                              device=x.device) if initial_state is None \
+            else initial_state.clone()
+    # the kernel writes all of the state (from the initial state it holds
+    # on entry, where given); the bf16 form chains it from chunk to chunk
+    # through per-(b, h) flags and a ticket, zeroed here
+    if initial_state is None:
+        state = torch.empty((b, h, p, n), dtype=torch.float32,
+                            device=x.device)
+    else:
+        state = initial_state.clone(memory_format=torch.contiguous_format)
     sync = torch.zeros(b * h + 1, dtype=torch.int32, device=x.device) \
         if x.dtype == torch.bfloat16 else None
     lib = _lib()
@@ -105,7 +121,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
         C.data_ptr(), y.data_ptr(), state.data_ptr(),
         None if sync is None else sync.data_ptr(), b, l, h, p,
         B.shape[2], n, chunk, x.stride(0), x.stride(1), B.stride(0),
-        B.stride(1), _DTYPES[x.dtype])
+        B.stride(1), _DTYPES[x.dtype], int(initial_state is not None))
     if err != 0:
         msg = lib.ssd_scan_error_string(err).decode()
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "

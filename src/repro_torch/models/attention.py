@@ -36,8 +36,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import NO_POLICY, ShardingPolicy, \
-    apply_rope, dense, dense_init, mlp, norm_init, pad_last, rms_norm, \
-    split_heads
+    apply_rope, dense, dense_init, mlp, norm_init, pad_last, residual, \
+    rms_norm, split_heads
 
 # queries per block of the score matrix: bounds live memory at
 # (B, Q_BLOCK, H, Skv) float32 without changing any query's result
@@ -168,6 +168,12 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def rope_if(cfg, x, positions):
+    """``x`` rotated to ``positions``, or as it is in a NoPE stack
+    (``cfg.use_rope`` False)."""
+    return apply_rope(x, positions, cfg.rope_theta) if cfg.use_rope else x
+
+
 def gqa_layer(cfg, p, x, positions, attend, mlp_fn=None):
     """One full GQA transformer layer, parameterised by the attention
     callable: the layer body of the engine's paged prefill and decode
@@ -193,19 +199,17 @@ def gqa_layer_qkv(cfg, p, x, positions):
     q = dense(p["attn"]["wq"], hn).reshape(b, s, h, dh)
     k = dense(p["attn"]["wk"], hn).reshape(b, s, hkv, dh)
     v = dense(p["attn"]["wv"], hn).reshape(b, s, hkv, dh)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return rope_if(cfg, q, positions), rope_if(cfg, k, positions), v
 
 
 def gqa_layer_out(cfg, p, x, ctx, mlp_fn=None):
     """:func:`gqa_layer` after its attention: the output projection of the
     context ``ctx`` (B, S, H, Dv), the residual, and the residual MLP."""
     b, s, _ = x.shape
-    y = x + dense(p["attn"]["wo"], ctx.reshape(b, s, -1))
+    y = residual(cfg, x, dense(p["attn"]["wo"], ctx.reshape(b, s, -1)))
     h2 = rms_norm(p["ln2"], y, cfg.norm_eps)
-    y = y + (mlp(p["mlp"], h2) if mlp_fn is None else mlp_fn(p["mlp"], h2))
-    return y
+    return residual(cfg, y, mlp(p["mlp"], h2) if mlp_fn is None
+                    else mlp_fn(p["mlp"], h2))
 
 
 def gqa_forward(cfg, p, x, positions, *, window=None, causal: bool = True,
@@ -223,9 +227,8 @@ def gqa_forward(cfg, p, x, positions, *, window=None, causal: bool = True,
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = split_heads(dense(p["wq"], x), h, dh)
     if kv_override is None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(split_heads(dense(p["wk"], x), hkv, dh), positions,
-                       cfg.rope_theta)
+        q = rope_if(cfg, q, positions)
+        k = rope_if(cfg, split_heads(dense(p["wk"], x), hkv, dh), positions)
         v = split_heads(dense(p["wv"], x), hkv, dh)
     else:
         k, v = kv_override
@@ -234,7 +237,7 @@ def gqa_forward(cfg, p, x, positions, *, window=None, causal: bool = True,
     v = policy.act(v, "kv_bshd")
     if attend is None:
         out = blockwise_attention(q, k, v, causal=causal, window=window,
-                                  policy=policy)
+                                  scale=cfg.attn_scale, policy=policy)
     else:
         out = attend(q, k, v)
     out = policy.act(out, "heads_bshd")
@@ -302,9 +305,9 @@ def gqa_decode(cfg, p, x, cache: KVCache, pos, *, window=None,
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = split_heads(dense(p["wq"], x), h, dh)
     if kv_override is None:
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        knew = apply_rope(split_heads(dense(p["wk"], x), hkv, dh),
-                          pos[:, None], cfg.rope_theta)
+        q = rope_if(cfg, q, pos[:, None])
+        knew = rope_if(cfg, split_heads(dense(p["wk"], x), hkv, dh),
+                       pos[:, None])
         vnew = split_heads(dense(p["wv"], x), hkv, dh)
         slot = cache_update(cache.pos, pos)
         cache = KVCache(k=_write_slot(cache.k, slot, knew[:, 0]),
@@ -317,12 +320,15 @@ def gqa_decode(cfg, p, x, cache: KVCache, pos, *, window=None,
         mask = None  # every encoder position
     k = policy.act(k, "kvcache_bskd")
     v = policy.act(v, "kvcache_bskd")
+    scale = cfg.attn_scale
     out = None if policy is NO_POLICY else policy.decode_attention(
-        _bf16(q[:, 0]), k, v, mask, 1.0 / math.sqrt(dh))
+        _bf16(q[:, 0]), k, v, mask,
+        1.0 / math.sqrt(dh) if scale is None else scale)
     if out is None:
         qg = _bf16(q.reshape(b, hkv, h // hkv, dh))
-        scores = torch.einsum("bhgd,bshd->bhgs", qg, _bf16(k)) \
-            / math.sqrt(dh)
+        scores = torch.einsum("bhgd,bshd->bhgs", qg, _bf16(k))
+        scores = scores / math.sqrt(dh) if scale is None \
+            else scores * scale
         if mask is not None:
             scores = scores.masked_fill(~mask[:, None, None, :],
                                         float("-inf"))

@@ -246,6 +246,29 @@ def unembed(p, x, vocab: int, policy: ShardingPolicy = NO_POLICY,
     return logits
 
 
+def embed_tokens(cfg, p, tokens, policy: ShardingPolicy = NO_POLICY):
+    """The embedded tokens, times ``cfg.embedding_multiplier`` where it
+    is not 1 (granite-4.0-h's 12)."""
+    x = embed(p, tokens, policy)
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
+
+
+def logits_of(cfg, p, x, policy: ShardingPolicy = NO_POLICY):
+    """:func:`unembed` at the config's vocabulary and precision, divided
+    by ``cfg.logits_scaling`` where it is not 1 (granite-4.0-h's 16)."""
+    logits = unembed(p, x, cfg.vocab_size, policy, fp32=cfg.logits_fp32)
+    s = cfg.logits_scaling
+    return logits if s == 1.0 else logits / s
+
+
+def residual(cfg, x, branch):
+    """``x`` plus a block's output, scaled by ``cfg.residual_multiplier``
+    where it is not 1 (granite-4.0-h's 0.22 on each branch)."""
+    m = cfg.residual_multiplier
+    return x + (branch if m == 1.0 else branch * m)
+
+
 def token_losses(logits, labels):
     """Per-token ``logsumexp(logits) - logits[label]`` (float32 logits,
     labels >= 0)."""

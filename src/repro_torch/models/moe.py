@@ -8,9 +8,9 @@ the next place of its expert, in token-major, choice-minor order, and a
 place at or past the capacity is dropped (the token falls through to the
 residual). Expert weights are stacked ``(E, d, ff)``; the expert products
 are batched matrix products, as the reference computes them in XLA
-einsums outside any kernel. Shared experts (``num_shared_experts``) are a
-plain gated MLP of width ``num_shared_experts * moe_d_ff`` applied to every
-token.
+einsums outside any kernel. Shared experts are a plain gated MLP of width
+``ArchConfig.shared_width`` (``num_shared_experts * moe_d_ff``, or the
+config's own ``shared_d_ff``) applied to every token.
 """
 
 from __future__ import annotations
@@ -40,9 +40,9 @@ def moe_init(cfg, gen, dtype, device, *, lead=()):
         "down": normal_init(gen, lead + (e, ff, d), 1.0 / math.sqrt(ff),
                             dtype, device),
     }
-    if cfg.num_shared_experts:
-        p["shared"] = mlp_init(gen, d, cfg.num_shared_experts * ff, dtype,
-                               device, gated=True, lead=lead)
+    if cfg.shared_width:
+        p["shared"] = mlp_init(gen, d, cfg.shared_width, dtype, device,
+                               gated=True, lead=lead)
     return p
 
 
@@ -56,7 +56,8 @@ def capacity(cfg, num_tokens: int) -> int:
 
 def moe_forward(cfg, p, x, *, policy: ShardingPolicy = NO_POLICY,
                 return_aux: bool = False,
-                capacity_tokens: Optional[int] = None):
+                capacity_tokens: Optional[int] = None,
+                fit_capacity: bool = False):
     """x: (B, S, D) -> (B, S, D) [+ the Switch-style load-balance loss].
 
     GShard's grouped dispatch (``moe.py:55-112`` of the reference): the
@@ -69,7 +70,10 @@ def moe_forward(cfg, p, x, *, policy: ShardingPolicy = NO_POLICY,
     ``capacity_tokens`` sizes the experts' capacity in place of a group's
     token count (the serving engine passes the reference's padded chunk
     length; the tokens it would pad come after every real one, so only
-    the capacity differs).
+    the capacity differs). ``fit_capacity`` then runs the experts at the
+    least power of two (at least 8) that holds the fullest expert's
+    places, where that is below the capacity: the same (token, choice)s
+    are kept, over fewer rows, for one read of the places on the host.
     """
     out = policy.moe_apply(cfg, p, x, return_aux)
     if out is not None:
@@ -93,6 +97,12 @@ def moe_forward(cfg, p, x, *, policy: ShardingPolicy = NO_POLICY,
     # exclusive cumsum over the token-major, choice-minor order
     onehot = F.one_hot(topi.reshape(g, tg * k), e)  # (G, Tg*k, E)
     pos = ((onehot.cumsum(1) - onehot) * onehot).sum(-1).view(g, tg, k)
+    if fit_capacity:
+        # the fullest expert's places, read on the host: the smallest
+        # power of two (at least 8) holding them, where that is below the
+        # static capacity, keeps the same (token, choice)s in fewer rows
+        need = int(pos.max()) + 1
+        cap = min(cap, max(8, 1 << (need - 1).bit_length()))
     keep = pos < cap
 
     # dispatch (G, E, cap, D): dropped places land in a spare row past cap

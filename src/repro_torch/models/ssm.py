@@ -10,6 +10,12 @@ scan in plain tensor ops (the kernel has no backward).
 Decode is the O(1) recurrent update of a ``(B, H, P, N)`` float32 state
 plus a rolling depthwise-conv window, in plain PyTorch (the reference has
 no kernel there).
+
+The paged engine keeps each SSM layer's conv windows and states in pools
+of one row per decode slot: a prefill chunk continues its sequence from
+the row's window and state (:func:`ssm_forward_packed`, every chunk of an
+iteration in one call), and a decode step updates the rows that decode in
+place (:func:`ssm_step_in`, :func:`ssm_step_update`, :func:`ssm_step_out`).
 """
 
 from __future__ import annotations
@@ -68,10 +74,12 @@ def _split_proj(cfg, proj):
     return z, xbc, dt
 
 
-def _causal_conv(cfg, p, xbc):
-    """Depthwise causal conv, width W: (B, S, C) -> (B, S, C)."""
-    w, s = cfg.ssm_conv_width, xbc.shape[1]
-    pads = F.pad(xbc, (0, 0, w - 1, 0))
+def _causal_conv(cfg, p, pads):
+    """Depthwise causal conv, width W, over ``pads`` (B, W - 1 + S, C):
+    S tokens after the W - 1 positions before them (zeros, or a carried
+    window): (B, S, C)."""
+    w = cfg.ssm_conv_width
+    s = pads.shape[1] - (w - 1)
     out = sum(pads[:, i:i + s] * p["conv_w"][i] for i in range(w))
     return F.silu(out + p["conv_b"])
 
@@ -151,7 +159,8 @@ def ssm_forward(cfg, p, x, *, return_cache: bool = False, scan=ssd_scan,
     din = cfg.ssm_d_inner
     proj = dense(p["in_proj"], x)
     z, xbc_raw, dt = _split_proj(cfg, proj)
-    xbc = _causal_conv(cfg, p, xbc_raw)
+    pads = F.pad(xbc_raw, (0, 0, cfg.ssm_conv_width - 1, 0))
+    xbc = _causal_conv(cfg, p, pads)
     xin = split_heads(xbc[..., :din], h, pdim)
     bmat = split_heads(xbc[..., din:din + g * n], g, n)
     cmat = split_heads(xbc[..., din + g * n:], g, n)
@@ -166,40 +175,125 @@ def ssm_forward(cfg, p, x, *, return_cache: bool = False, scan=ssd_scan,
     out = dense(p["out_proj"], _gated_norm(cfg, p, y, z, x.dtype), policy,
                 "act_bsd")
     if return_cache:
-        w = cfg.ssm_conv_width
-        tail = F.pad(xbc_raw, (0, 0, max(w - 1 - s, 0), 0))[:, -(w - 1):]
-        return out, SSMCache(conv=tail, state=final_state)
+        return out, SSMCache(conv=pads[:, -(cfg.ssm_conv_width - 1):],
+                             state=final_state)
     return out
+
+
+def ssm_forward_packed(cfg, p, x, lens, caches, *, scan=ssd_scan):
+    """The Mamba2 block over several sequences' chunks packed on one axis:
+    x (1, T, D) holds chunks of ``lens`` tokens in order (T their sum),
+    chunk i continuing its sequence from ``caches[i]`` (an
+    :class:`SSMCache` of batch 1) or, where that is None, from zeros.
+    The projections, the conv and the gated norm run once over all T
+    tokens, each chunk's conv reading its own window and no other chunk's
+    tokens; the scan runs once a chunk. Returns (1, T, D) and each chunk's
+    cache after its last token."""
+    w, din = cfg.ssm_conv_width, cfg.ssm_d_inner
+    h, pdim, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
+        cfg.ssm_groups
+    z, xbc_raw, dt = _split_proj(cfg, dense(p["in_proj"], x))
+    # chunk i as [its window, its tokens]: the conv of the whole run gives
+    # chunk i's outputs at [b_i, b_i + len_i), b_i its block's start
+    zeros = xbc_raw.new_zeros((1, w - 1, xbc_raw.shape[2]))
+    blocks, starts, o, b = [], [], 0, 0
+    for s, cache in zip(lens, caches):
+        blocks += [zeros if cache is None else cache.conv.to(xbc_raw.dtype),
+                   xbc_raw[:, o:o + s]]
+        starts.append(b)
+        o, b = o + s, b + s + w - 1
+    pads = torch.cat(blocks, dim=1)
+    conv = _causal_conv(cfg, p, pads)
+    xbc = conv if len(lens) == 1 else torch.cat(
+        [conv[:, b:b + s] for b, s in zip(starts, lens)], dim=1)
+    xin = split_heads(xbc[..., :din], h, pdim)
+    bmat = split_heads(xbc[..., din:din + g * n], g, n)
+    cmat = split_heads(xbc[..., din + g * n:], g, n)
+    dtv = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    ys, new, o = [], [], 0
+    for s, b, cache in zip(lens, starts, caches):
+        carried = {} if cache is None else {"initial_state": cache.state}
+        y, state = scan(xin[:, o:o + s], dtv[:, o:o + s], A,
+                        bmat[:, o:o + s], cmat[:, o:o + s],
+                        chunk=min(cfg.ssm_chunk, s), **carried)
+        ys.append(y)
+        new.append(SSMCache(conv=pads[:, b + s:b + s + w - 1], state=state))
+        o += s
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+    y = y + xin.float() * p["D"][:, None]
+    y = y.reshape(1, o, din).to(x.dtype)
+    return dense(p["out_proj"], _gated_norm(cfg, p, y, z, x.dtype)), new
 
 
 def ssm_decode(cfg, p, x, cache: SSMCache, *,
                policy: ShardingPolicy = NO_POLICY):
-    """One-token recurrent update. x: (B, 1, D) -> (B, 1, D), new cache."""
-    b = x.shape[0]
-    h, pdim, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
+    """One-token recurrent update. x: (B, 1, D) -> (B, 1, D), new cache.
+    The engine's step (:func:`ssm_step_update`) on copies of the cache's
+    window and state, so ``cache`` stays as it was."""
+    conv = cache.conv.clone()
+    state = cache.state.to(torch.float32, copy=True)
+    z, xbc_new, dtv = ssm_step_in(cfg, p, x)
+    y = ssm_step_update(cfg, p, xbc_new, dtv, conv, state)
+    out = ssm_step_out(cfg, p, y, z, x.dtype, policy)
+    return out, SSMCache(conv=conv, state=state)
+
+
+# -- the engine's decode step over pooled slots --------------------------------
+
+def ssm_step_in(cfg, p, x):
+    """A decode step's input projection. x: (n, 1, D) -> (z (n, 1, din),
+    the new conv input (n, 1, C), dt (n, H) float32 after softplus)."""
+    z, xbc_new, dt = _split_proj(cfg, dense(p["in_proj"], x))
+    return z, xbc_new, F.softplus(dt[:, 0].float() + p["dt_bias"])
+
+
+def ssm_step_update(cfg, p, xbc_new, dtv, conv, state, rows=None):
+    """The conv window, the state update and the readout of a decode step,
+    in an engine's pools. ``conv`` (n, W-1, C) and ``state`` (n, H, P, N)
+    float32 are the layer's pool rows, one per slot; ``rows``: the index
+    (m,) of the rows that decode, or None for every row. Those rows'
+    windows and states are updated in place; every other row is neither
+    read into the result nor written, so its window and state stay as they
+    were, bit for bit. Returns y (n, H, P) float32 with the D skip (zeros
+    on the other rows) for :func:`ssm_step_out`. The state decays, then
+    takes x dt B^T, then is read out by C, in place: each layer's state is
+    read and written twice and read once more for the readout."""
+    n = xbc_new.shape[0]
+    h, pdim, nst, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_groups
     din = cfg.ssm_d_inner
-    proj = dense(p["in_proj"], x)  # (B, 1, *)
-    z, xbc_new, dt = _split_proj(cfg, proj)
-
-    # rolling conv buffer: window = [cache.conv, xbc_new]
-    win = torch.cat([cache.conv, xbc_new], dim=1)  # (B, W, C)
+    if rows is not None:
+        conv_new, xbc_new, dtv = conv[rows], xbc_new[rows], dtv[rows]
+        st = state[rows]
+    else:
+        conv_new, st = conv, state
+    win = torch.cat([conv_new, xbc_new], dim=1)  # (m, W, C)
     conv_out = F.silu((win * p["conv_w"][None]).sum(1) + p["conv_b"])
-
-    xin = split_heads(conv_out[:, :din], h, pdim)
+    m = conv_out.shape[0]
+    xin = split_heads(conv_out[:, :din], h, pdim).float()
     rep = h // g
-    bh = split_heads(conv_out[:, din:din + g * n], g, n) \
-        .repeat_interleave(rep, dim=1)
-    ch = split_heads(conv_out[:, din + g * n:], g, n) \
-        .repeat_interleave(rep, dim=1)
-    dtv = F.softplus(dt[:, 0].float() + p["dt_bias"])  # (B, H)
-    A = -torch.exp(p["A_log"])
+    bh = split_heads(conv_out[:, din:din + g * nst], g, nst) \
+        .repeat_interleave(rep, dim=1).float()
+    ch = split_heads(conv_out[:, din + g * nst:], g, nst) \
+        .repeat_interleave(rep, dim=1).float()
+    st.mul_(torch.exp(dtv * -torch.exp(p["A_log"]))[..., None, None])
+    flat = st.view(m * h, pdim, nst)
+    flat.baddbmm_((xin * dtv[..., None]).reshape(m * h, pdim, 1),
+                  bh.reshape(m * h, 1, nst))
+    y = torch.bmm(flat, ch.reshape(m * h, nst, 1)).view(m, h, pdim)
+    y = y + xin * p["D"][:, None]
+    if rows is None:
+        conv.copy_(win[:, 1:])
+        return y
+    state.index_copy_(0, rows, st)
+    conv.index_copy_(0, rows, win[:, 1:].contiguous())
+    return y.new_zeros((n, h, pdim)).index_copy_(0, rows, y)
 
-    decay = torch.exp(dtv * A)
-    state = cache.state * decay[..., None, None] + torch.einsum(
-        "bhp,bhn->bhpn", xin.float() * dtv[..., None], bh.float())
-    y = torch.einsum("bhpn,bhn->bhp", state, ch.float())
-    y = y + xin.float() * p["D"][:, None]
-    y = _gated_norm(cfg, p, y.reshape(b, 1, din), z, x.dtype)
-    out = dense(p["out_proj"], y, policy, "act_bsd")
-    return out, SSMCache(conv=win[:, 1:], state=state)
+
+def ssm_step_out(cfg, p, y, z, dtype, policy: ShardingPolicy = NO_POLICY):
+    """The gated norm and output projection of :func:`ssm_step_update`'s
+    y (n, H, P): (n, 1, D)."""
+    n = y.shape[0]
+    y = _gated_norm(cfg, p, y.reshape(n, 1, cfg.ssm_d_inner), z, dtype)
+    return dense(p["out_proj"], y, policy, "act_bsd")

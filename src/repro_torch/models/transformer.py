@@ -7,7 +7,10 @@ with its ``first_k_dense`` dense layers), the attention-free SSM plan
 by side in every layer (hymba: ``[1 x global, 15 x swa] x 2``), and the
 encoder-decoder plan (seamless-m4t: an encoder ``[12 x gqa-dense]`` of
 non-causal self-attention, and decoder layers ``[12 x gqa-dense, cross]``
-that attend over the encoder's output after their self-attention).
+that attend over the encoder's output after their self-attention), and a
+stack whose config lists each layer's mixer (``layer_types``: granite-4.0-
+h-small, ``[5 x ssm-moe, gqa-moe, 9 x ssm-moe, gqa-moe, ...]``, a Mamba-2
+or a NoPE GQA mixer before each layer's MoE), in runs of one mixer.
 
 Media (``frontend`` "vision" or "audio") are precomputed embeddings that
 replace the first positions of the embedded tokens (``_embed_with_media``):
@@ -72,7 +75,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import NO_POLICY, ShardingPolicy, \
-    cross_entropy, embed, mlp, rms_norm, unembed
+    cross_entropy, embed_tokens, logits_of, mlp, residual, rms_norm
 from repro_torch.models.moe import moe_forward
 
 
@@ -89,7 +92,9 @@ def stack_plan(cfg: ArchConfig) -> List[Segment]:
     """The reference's decoder plan (``transformer.py:51-76``): a GQA or
     MLA stack, dense or MoE, whose segments attend over an encoder's
     output where the config has one (``cross``), an SSM stack or a hybrid
-    one."""
+    one, or the runs of one mixer of a ``layer_types`` stack."""
+    if cfg.layer_types is not None:
+        return _typed_plan(cfg)
     if cfg.family == "ssm":
         if cfg.d_ff:
             raise NotImplementedError(
@@ -118,6 +123,33 @@ def stack_plan(cfg: ArchConfig) -> List[Segment]:
         return segs
     return [Segment(cfg.num_layers, mixer, "dense", attn_kind,
                     cross=cfg.is_encdec)]
+
+
+def _typed_plan(cfg: ArchConfig) -> List[Segment]:
+    """A ``layer_types`` stack: each run of layers of one mixer (and one
+    MLP kind) one segment; the attention global, NoPE where the config
+    says so."""
+    if len(cfg.layer_types) != cfg.num_layers:
+        raise ValueError(f"{cfg.arch_id}: {len(cfg.layer_types)} layer "
+                         f"types for {cfg.num_layers} layers")
+    if cfg.sliding_window:
+        raise NotImplementedError(f"{cfg.arch_id}: a window in a "
+                                  "layer_types stack is not ported")
+
+    mlp_kind = "moe" if cfg.is_moe else "dense" if cfg.d_ff else "none"
+
+    def kind(i):
+        mixer = cfg.mixer_of(i)
+        return mixer, mlp_kind, "none" if mixer == "ssm" else "global"
+
+    segs = []
+    for i in range(cfg.num_layers):
+        if segs and (segs[-1].mixer, segs[-1].mlp_kind,
+                     segs[-1].attn_kind) == kind(i):
+            segs[-1] = dataclasses.replace(segs[-1], n=segs[-1].n + 1)
+        else:
+            segs.append(Segment(1, *kind(i)))
+    return segs
 
 
 def encoder_plan(cfg: ArchConfig) -> List[Segment]:
@@ -164,13 +196,16 @@ def seg_window(cfg: ArchConfig, seg: Segment):
     return cfg.sliding_window if seg.attn_kind == "swa" else None
 
 
-def _plain_attention(q, k, v, window, causal=True, policy=NO_POLICY):
+def _plain_attention(q, k, v, window, causal=True, policy=NO_POLICY,
+                     scale=None):
     return attn.blockwise_attention(q, k, v, causal=causal, window=window,
-                                    policy=policy)
+                                    scale=scale, policy=policy)
 
 
-def _kernel_attention(q, k, v, window, causal=True, policy=NO_POLICY):
-    return prefill_attention(q, k, v, window=window, causal=causal)
+def _kernel_attention(q, k, v, window, causal=True, policy=NO_POLICY,
+                      scale=None):
+    return prefill_attention(q, k, v, window=window, causal=causal,
+                             scale=scale)
 
 
 def _scan(policy: ShardingPolicy):
@@ -179,13 +214,13 @@ def _scan(policy: ShardingPolicy):
     return ssd_scan if policy.kernels else ssm_mod.ssd_chunked
 
 
-def _mlp_residual(cfg, seg: Segment, p, x, mlp_fn, policy=NO_POLICY):
+def mlp_residual(cfg, seg: Segment, p, x, mlp_fn, policy=NO_POLICY):
     """The pre-norm residual MLP of a layer (``mlp_fn`` for MoE)."""
     if seg.mlp_kind == "none":
         return x
     h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-    return x + (mlp(p["mlp"], h2, policy) if mlp_fn is None
-                else mlp_fn(p["mlp"], h2))
+    return residual(cfg, x, mlp(p["mlp"], h2, policy) if mlp_fn is None
+                    else mlp_fn(p["mlp"], h2))
 
 
 def _layer_forward(cfg, seg: Segment, p, x, positions, *, attention,
@@ -204,9 +239,11 @@ def _layer_forward(cfg, seg: Segment, p, x, positions, *, attention,
     (that seed, (ck, cv))), else None. ``policy``'s hooks as the
     reference's."""
     window = seg_window(cfg, seg)
+    # the config's softmax scale, passed where it has one
+    scaled = {} if cfg.attn_scale is None else {"scale": cfg.attn_scale}
 
     def attend(q, k, v):
-        return attention(q, k, v, window, causal, policy)
+        return attention(q, k, v, window, causal, policy, **scaled)
 
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     seed = None
@@ -216,19 +253,19 @@ def _layer_forward(cfg, seg: Segment, p, x, positions, *, attention,
                                policy=policy)
         if collect:
             out, seed = out
-        x = x + out
+        x = residual(cfg, x, out)
     elif seg.mixer == "mla":
         out = attn.mla_forward(cfg, p["attn"], h, positions,
                                return_latent=collect, policy=policy)
         if collect:
             out, seed = out
-        x = x + out
+        x = residual(cfg, x, out)
     elif seg.mixer == "ssm":
         out = ssm_mod.ssm_forward(cfg, p["ssm"], h, return_cache=collect,
                                   scan=scan, policy=policy)
         if collect:
             out, seed = out
-        x = x + out
+        x = residual(cfg, x, out)
     else:  # hybrid: parallel heads, averaged fusion
         a = attn.gqa_forward(cfg, p["attn"], h, positions,
                              return_kv=collect, attend=attend, policy=policy)
@@ -251,9 +288,9 @@ def _layer_forward(cfg, seg: Segment, p, x, positions, *, attention,
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
         out, aux = moe_forward(cfg, p["mlp"], h2, policy=policy,
                                return_aux=True)
-        return x + out, aux, seed
+        return residual(cfg, x, out), aux, seed
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _mlp_residual(cfg, seg, p, x, mlp_fn, policy), aux, seed
+    return mlp_residual(cfg, seg, p, x, mlp_fn, policy), aux, seed
 
 
 def mla_forward_layer(cfg, p, x, positions, mlp_fn=None):
@@ -278,15 +315,15 @@ def _layer_decode(cfg, seg: Segment, p, x, pos, cache,
     if seg.mixer == "gqa":
         out, cache = attn.gqa_decode(cfg, p["attn"], h, cache, pos,
                                      window=window, policy=policy)
-        x = x + out
+        x = residual(cfg, x, out)
     elif seg.mixer == "mla":
         out, cache = attn.mla_decode(cfg, p["attn"], h, cache, pos,
                                      policy=policy)
-        x = x + out
+        x = residual(cfg, x, out)
     elif seg.mixer == "ssm":
         out, cache = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache,
                                         policy=policy)
-        x = x + out
+        x = residual(cfg, x, out)
     else:
         kv_c, ssm_c = cache
         a, kv_c = attn.gqa_decode(cfg, p["attn"], h, kv_c, pos,
@@ -304,7 +341,7 @@ def _layer_decode(cfg, seg: Segment, p, x, pos, cache,
         cache = dict(cross, self=cache)
     mlp_fn = (lambda pm, h2: moe_forward(cfg, pm, h2, policy=policy)) \
         if seg.mlp_kind == "moe" else None
-    return _mlp_residual(cfg, seg, p, x, mlp_fn, policy), cache
+    return mlp_residual(cfg, seg, p, x, mlp_fn, policy), cache
 
 
 # -- cache trees: NamedTuples, tuples and dicts of tensors --------------------
@@ -419,8 +456,7 @@ class Model:
     def _logits(self, params, x, policy=NO_POLICY):
         cfg = self.cfg
         x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-        return unembed(params["embed"], x, cfg.vocab_size, policy,
-                       fp32=cfg.logits_fp32)
+        return logits_of(cfg, params["embed"], x, policy)
 
     def _run_stack(self, plan, seg_params, x, *, attention, collect: bool,
                    causal: bool = True, enc_out=None, scan=ssd_scan,
@@ -455,7 +491,7 @@ class Model:
     def _embed_with_media(self, params, tokens, media, policy=NO_POLICY):
         """Embedded tokens whose first ``media.shape[1]`` positions are the
         media embeddings (B, M, D) instead (``transformer.py:353-358``)."""
-        x = embed(params["embed"], tokens, policy)
+        x = embed_tokens(self.cfg, params["embed"], tokens, policy)
         if media is not None:
             m = media.shape[1]
             x = torch.cat([media.to(x.dtype), x[:, m:]], dim=1)
@@ -637,7 +673,7 @@ class Model:
         caches are not changed."""
         cfg = self.cfg
         with policy.scope():
-            x = embed(params["embed"], tokens, policy)
+            x = embed_tokens(cfg, params["embed"], tokens, policy)
             new_caches = []
             for seg, p_seg, cache in zip(self.plan, params["segments"],
                                          caches):

@@ -47,7 +47,10 @@ prefill writes, the copy-on-write page copies and best-of-n forks all write
 into ``k_pages`` / ``v_pages`` directly. PyTorch runs eagerly, so the
 reference's power-of-two padding of chunk lengths and page lists (a jit
 shape bucket) is gone. Its one visible effect is kept: a MoE layer sizes
-its experts' capacity from the padded chunk length (:func:`_pow2_bucket`).
+its experts' capacity from the padded chunk length (:func:`_pow2_bucket`),
+and so drops what the reference drops; a chunk's MoE then runs at the
+least power of two that holds its fullest expert's places, where that is
+less (``moe_forward``'s ``fit_capacity``).
 
 **Cluster serving.** Several engines behind
 :class:`~repro_torch.serving.router.RouterBackend` share one ``params``
@@ -110,6 +113,21 @@ reference's pools are immutable, so it defers that copy to the complete
 half instead; the pages are not written in between, so both give the same
 bytes.
 
+**Mamba-2 + GQA stacks** (``layer_types``: granite-4.0-h-small): the KV
+pools hold the attention layers only, and each SSM layer keeps one conv
+window ``(W-1, C)`` and one float32 state ``(H, P, N)`` per decode slot
+(``ssm_conv`` / ``ssm_state``, allocated once). A request's first chunk
+starts its slot's SSM rows from zeros; every later chunk continues from
+them (the ``ssd_scan`` kernel from the carried state, the conv from the
+carried window). An iteration's chunks run in one forward, packed on one
+token axis (:meth:`PagedEngine._prefill_packed`): projections, norms and
+the MoE once over all their tokens, the scans and attention calls once a
+chunk. A decode step updates in place the rows that decode,
+leaving a row still in prefill untouched. Preemption by recompute restarts
+at position 0, so from zeros. The prefix cache, the host tier, zero-copy
+leases, KV handoffs and best-of-n forks would need the recurrent state to
+move or be shared with the pages; they are refused.
+
 The engine implements :class:`~repro_torch.serving.api.ServingBackend`;
 drive it through :class:`~repro_torch.serving.api.LLMService`. Best-of-n
 requests (``SamplingParams.n > 1``) COW-fork the parent's block table right
@@ -142,11 +160,18 @@ from repro_torch.models import sampling
 from repro_torch.models.attention import (_mla_scale, blockwise_attention,
                                           gqa_layer, mla_effective_ctx,
                                           mla_effective_kv, mla_layer)
-from repro_torch.models.layers import embed, rms_norm, unembed
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import embed_tokens, logits_of, residual, \
+    rms_norm
 from repro_torch.models.moe import moe_forward
-from repro_torch.models.transformer import Model, seg_window
+from repro_torch.models.transformer import Model, mlp_residual, seg_window
 from repro_torch.serving.api import SamplingParams
 from repro_torch.serving.decode_graphs import DecodeGraphs
+
+
+# why a page-level feature is refused for a stack with SSM layers
+_SSM_STATE = "SSM layers (their recurrent state is one per slot, not paged)"
 
 
 def _pow2_bucket(n: int, floor: int = 8) -> int:
@@ -229,10 +254,12 @@ class PagedEngine:
         self.ecfg = ecfg
         self.params = params
         self.model = Model(cfg)
-        if {seg.mixer for seg in self.model.plan} not in ({"gqa"}, {"mla"}):
+        mixers = {seg.mixer for seg in self.model.plan}
+        if mixers not in ({"gqa"}, {"mla"}, {"ssm", "gqa"}):
             raise ValueError(f"{cfg.arch_id}: this engine serves GQA stacks "
-                             "only, or MLA stacks only (an SSM or hybrid "
-                             "model runs Model.prefill and "
+                             "only, MLA stacks only, or stacks of Mamba-2 "
+                             "and GQA layers (layer_types) (an SSM-only or "
+                             "hybrid-head model runs Model.prefill and "
                              "Model.decode_step)")
         # the reference's engine checks the mixers alone and would serve an
         # encoder-decoder plan as a decoder-only one, without its encoder
@@ -247,6 +274,28 @@ class PagedEngine:
         self.flavor = self.kv_layout.flavor
         if self.flavor == "mla" and cfg.sliding_window:
             raise ValueError("MLA + sliding window is unsupported")
+        # each layer's index in the KV pools (attention) or the SSM pools
+        self._pool_index: List[int] = []
+        count = {"ssm": 0, "kv": 0}
+        for seg in self.model.plan:
+            kind = "ssm" if seg.mixer == "ssm" else "kv"
+            self._pool_index += range(count[kind], count[kind] + seg.n)
+            count[kind] += seg.n
+        self.ssm_state = self.ssm_conv = None
+        if count["ssm"]:
+            for what, on in (("the prefix cache", ecfg.enable_prefix_cache),
+                             ("the host KV tier", ecfg.host_pages)):
+                if on:
+                    raise ValueError(f"{cfg.arch_id}: {what} is not "
+                                     f"supported with {_SSM_STATE}")
+            self.ssm_state = torch.zeros(
+                (count["ssm"], ecfg.max_slots, cfg.ssm_heads,
+                 cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32,
+                device=self.device)
+            self.ssm_conv = torch.zeros(
+                (count["ssm"], ecfg.max_slots, cfg.ssm_conv_width - 1,
+                 ssm_mod.conv_dim(cfg)), dtype=cfg.torch_dtype,
+                device=self.device)
         P, ps = ecfg.num_pages, ecfg.page_size
         # +1 trash page (index P): inactive decode slots park their writes
         # there; no real context ever reads it. The pools keep the names
@@ -291,6 +340,8 @@ class PagedEngine:
         self.graph_decode_steps = 0
         self._graphs: Optional[DecodeGraphs] = None
         self.prefill_chunks = 0  # prefill chunk calls
+        # prefill chunks of an SSM stack that began from a carried state
+        self.ssm_carried_chunks = 0
         # zero-copy leases: chunks that attended over a lease (plain
         # partials, no prefill kernel), decode steps that merged remote
         # partials, and the remote partials (one per creditor) over them
@@ -323,15 +374,25 @@ class PagedEngine:
             if any(seg.attn_kind == "swa" for seg in self.model.plan) \
             else None
 
+    def _refuse_ssm(self, what: str) -> None:
+        if self.ssm_state is not None:
+            raise ValueError(f"{self.cfg.arch_id}: {what} is not supported "
+                             f"with {_SSM_STATE}")
+
     # -- model steps ------------------------------------------------------------
 
     def _mlp_fn(self, seg, capacity_tokens=None):
         """Per-segment MLP dispatch for the shared layer body: dense
-        segments use the layer's MLP, MoE segments the expert dispatch, with
-        their capacity sized from ``capacity_tokens`` where given."""
+        segments use the layer's MLP, MoE segments the expert dispatch.
+        A prefill chunk's gives ``capacity_tokens``: the capacity is sized
+        from it, then cut to the fullest expert's places where they fit in
+        less (``fit_capacity``: the same places kept, one host read a
+        layer), since a chunk's tokens fill a small share of it."""
         if seg.mlp_kind == "moe":
+            fit = capacity_tokens is not None
             return lambda pm, h: moe_forward(self.cfg, pm, h,
-                                             capacity_tokens=capacity_tokens)
+                                             capacity_tokens=capacity_tokens,
+                                             fit_capacity=fit)
         return None
 
     def _layer(self, seg, li, p, x, positions, slot_pages, in_page,
@@ -341,7 +402,8 @@ class PagedEngine:
         call's pool payloads, the last two arguments the body hands it (k /
         v, or ckv / krope), into their (page, offset) slots in place, then
         returns ``attention(seg, li, *queries, pool_a, pool_b)``."""
-        kp, vp = self.k_pages[li], self.v_pages[li]
+        kp = self.k_pages[self._pool_index[li]]
+        vp = self.v_pages[self._pool_index[li]]
 
         def attend(*args):
             *queries, a, b = args
@@ -351,6 +413,65 @@ class PagedEngine:
 
         body = mla_layer if self.flavor == "mla" else gqa_layer
         return body(self.cfg, p, x, positions, attend, mlp_fn)
+
+    def _ssm_chunk_layer(self, seg, li, p, x, chunks, mlp_fn):
+        """SSM layer ``li`` over an iteration's prefill chunks packed in x
+        (1, T, D), ``chunks`` (slot, start, length) each: chunk i's
+        Mamba-2 block continued from its slot's conv window and state where
+        its start is > 0 (from zeros at a first chunk), which it then
+        leaves there."""
+        cfg, tr, k = self.cfg, self.recording, self._pool_index[li]
+        if tr is not None:
+            tr.enter("engine", "ssm.mixer")
+        caches = [ssm_mod.SSMCache(self.ssm_conv[k, slot:slot + 1],
+                                   self.ssm_state[k, slot:slot + 1])
+                  if start else None for slot, start, _ in chunks]
+        h = rms_norm(p["ln1"], x, cfg.norm_eps)
+        out, new = ssm_mod.ssm_forward_packed(
+            cfg, p["ssm"], h, [s for _, _, s in chunks], caches,
+            scan=self._scan)
+        for (slot, _, _), c in zip(chunks, new):
+            self.ssm_conv[k, slot] = c.conv[0]
+            self.ssm_state[k, slot] = c.state[0]
+        if tr is not None:
+            tr.exit(phase="chunk", tokens=x.shape[1])
+        return mlp_residual(cfg, seg, p, residual(cfg, x, out), mlp_fn)
+
+    def _scan(self, x, dt, A, B, C, *, chunk: int, initial_state=None):
+        """``ssd_scan`` inside an ``ssm.scan`` span where the step records
+        its spans."""
+        tr = self.recording
+        if tr is not None:
+            tr.enter("engine", "ssm.scan")
+        out = ssd_scan(x, dt, A, B, C, chunk=chunk,
+                       initial_state=initial_state)
+        if tr is not None:
+            tr.exit(tokens=x.shape[1], heads=x.shape[2], head_dim=x.shape[3],
+                    state=B.shape[3], groups=B.shape[2], chunk=chunk,
+                    carried=int(initial_state is not None))
+        return out
+
+    def _ssm_decode_layer(self, seg, li, p, x, rows, mlp_fn):
+        """SSM layer ``li`` over a decode step's rows (n, 1, D): every row
+        projected, the rows ``rows`` (None: all) stepped in their slots'
+        pool rows in place."""
+        cfg, tr, k = self.cfg, self.recording, self._pool_index[li]
+        n = x.shape[0]
+        if tr is not None:
+            tr.enter("engine", "ssm.mixer")
+        h = rms_norm(p["ln1"], x, cfg.norm_eps)
+        z, xbc_new, dtv = ssm_mod.ssm_step_in(cfg, p["ssm"], h)
+        if tr is not None:
+            tr.enter("engine", "ssm.update")
+        y = ssm_mod.ssm_step_update(cfg, p["ssm"], xbc_new, dtv,
+                                    self.ssm_conv[k], self.ssm_state[k],
+                                    rows)
+        if tr is not None:
+            tr.exit(rows=n, active=n if rows is None else len(rows))
+        out = ssm_mod.ssm_step_out(cfg, p["ssm"], y, z, x.dtype)
+        if tr is not None:
+            tr.exit(phase="decode", rows=n)
+        return mlp_residual(cfg, seg, p, residual(cfg, x, out), mlp_fn)
 
     @staticmethod
     def _latent(cp, rp, idx, dtype):
@@ -425,7 +546,7 @@ class PagedEngine:
                 if lease is None:
                     return prefill_attention_paged(
                         q, kp, vp, pages, q_offset=start,
-                        window=seg_window(cfg, seg))
+                        window=seg_window(cfg, seg), scale=cfg.attn_scale)
                 parts = [attention_partial(q, self._gathered(kp, idx),
                                            self._gathered(vp, idx), mask_l),
                          attention_partial(
@@ -450,19 +571,78 @@ class PagedEngine:
 
         if tr is not None:
             tr.enter("engine", "chunk.layers")
-        x = embed(self.params["embed"], toks[None])  # (1, s, d)
+        x = embed_tokens(cfg, self.params["embed"], toks[None])  # (1, s, d)
         s_pad = _pow2_bucket(s)
         for seg, li, p in self.model.layers(self.params):
             x = self._layer(seg, li, p, x, positions, tok_pages, in_page,
                             attention, self._mlp_fn(seg, s_pad))
         x = rms_norm(self.params["final_norm"], x[:, -1:], cfg.norm_eps)
-        logits = unembed(self.params["embed"], x, cfg.vocab_size,
-                         fp32=cfg.logits_fp32)
+        logits = logits_of(cfg, self.params["embed"], x)
         if tr is not None:
             tr.exit()
         self.prefill_chunks += 1
         self.leased_chunks += lease is not None
         return logits[0, 0]
+
+    def _prefill_packed(self, chunks):
+        """An iteration's prefill chunks of a stack with SSM layers in one
+        forward, packed on one token axis: ``chunks`` holds (tokens,
+        page_ids, start, slot) of each, as :meth:`_prefill_chunk` takes
+        them (no lease: SSM stacks refuse them). The projections, norms and
+        MoE layers run once over all the chunks' tokens; each chunk has
+        its own scans (:meth:`_ssm_chunk_layer`) and attention calls. The
+        MoE capacity is sized from the padded total (:func:`_pow2_bucket`)
+        and fitted to the experts' places (:meth:`_mlp_fn`). Returns the
+        logits (n, V) of each chunk's last position."""
+        tr = self.recording
+        if tr is not None:
+            tr.enter("engine", "chunk.inputs")
+        cfg, ps, dev = self.cfg, self.ecfg.page_size, self.device
+        lens = [len(c[0]) for c in chunks]
+        pos = np.concatenate([start + np.arange(len(t))
+                              for t, _, start, _ in chunks])
+        tok_pages = np.concatenate([np.asarray(pg, np.int64)[
+            (start + np.arange(len(t))) // ps] for t, pg, start, _ in chunks])
+        host = np.stack([np.concatenate([np.asarray(t, np.int64)
+                                         for t, *_ in chunks]),
+                         pos, tok_pages, pos % ps])
+        toks, positions, tok_pages, in_page = _to_device(host, dev)
+        page_ids = [np.asarray(pg, np.int32) for _, pg, _, _ in chunks]
+        pages = _to_device(np.concatenate(page_ids), dev)
+        at = np.cumsum([0] + lens)
+        pat = np.cumsum([0] + [len(pg) for pg in page_ids])
+        if tr is not None:
+            tr.exit()
+
+        def attention(seg, li, q, kp, vp):
+            outs = [prefill_attention_paged(
+                q[:, at[i]:at[i + 1]], kp, vp, pages[pat[i]:pat[i + 1]],
+                q_offset=c[2], window=seg_window(cfg, seg),
+                scale=cfg.attn_scale) for i, c in enumerate(chunks)]
+            return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+        if tr is not None:
+            tr.enter("engine", "chunk.layers")
+        x = embed_tokens(cfg, self.params["embed"], toks[None])  # (1, T, d)
+        t_pad = _pow2_bucket(int(at[-1]))
+        spans = [(slot, start, s) for (_, _, start, slot), s
+                 in zip(chunks, lens)]
+        for seg, li, p in self.model.layers(self.params):
+            if seg.mixer == "ssm":
+                x = self._ssm_chunk_layer(seg, li, p, x, spans,
+                                          self._mlp_fn(seg, t_pad))
+                continue
+            x = self._layer(seg, li, p, x, positions, tok_pages, in_page,
+                            attention, self._mlp_fn(seg, t_pad))
+        last = x[:, -1:] if len(chunks) == 1 else torch.cat(
+            [x[:, e - 1:e] for e in at[1:]], dim=1)
+        x = rms_norm(self.params["final_norm"], last, cfg.norm_eps)
+        logits = logits_of(cfg, self.params["embed"], x)
+        if tr is not None:
+            tr.exit()
+        self.prefill_chunks += len(chunks)
+        self.ssm_carried_chunks += sum(c[2] > 0 for c in chunks)
+        return logits[0]
 
     def _eager_reason(self, n: int, remote) -> Optional[str]:
         """Why a decode step of ``n`` rows with the remote partials
@@ -470,6 +650,8 @@ class PagedEngine:
         piecewise graphs (:mod:`repro_torch.serving.decode_graphs`): those
         hold a dense GQA stack's step on the card at the engine's slots,
         with one local ``paged_attention`` call a layer."""
+        if self.ssm_state is not None:
+            return "ssm"
         if self.flavor != "gqa":
             return self.flavor
         kinds = {seg.mlp_kind for seg in self.model.plan} - {"dense"}
@@ -521,6 +703,10 @@ class PagedEngine:
         from that creditor's pools: for GQA through ``paged_attention``
         with its ``(m, l)``, for MLA through the plain float32 partial
         over the gathered latent.
+
+        An SSM layer steps the pooled states of the rows with a context
+        (the decoding ones) in place, and leaves every other row's state
+        and conv window as they were.
         """
         tr = self.recording
         if tr is not None:
@@ -558,6 +744,11 @@ class PagedEngine:
                                     torch.full_like(page_slot,
                                                     ecfg.num_pages))
             in_page = loc_pos % ps
+        rows = None
+        if self.ssm_state is not None:
+            active = np.flatnonzero(np.asarray(ctx_lens) > 0)
+            if len(active) < n:
+                rows = _to_device(active, dev, torch.int64)
         if tr is not None:
             tr.exit(width=bt.shape[1])
 
@@ -568,7 +759,7 @@ class PagedEngine:
                 if not remote:
                     att = paged_attention(q1, kp, vp, bt, lens, page_size=ps,
                                           window=seg_window(cfg, seg),
-                                          out=out)
+                                          out=out, scale=cfg.attn_scale)
                     return att.reshape(n, 1, cfg.num_heads, cfg.head_dim)
                 sources = [(kp, vp, bt, loc_lens)]
                 for home, t, c in remote:
@@ -607,13 +798,16 @@ class PagedEngine:
         if graphs is not None:
             logits = graphs.run(attention)
         else:
-            x = embed(self.params["embed"], toks[:, None])  # (n, 1, d)
+            x = embed_tokens(cfg, self.params["embed"], toks[:, None])
             for seg, li, p in self.model.layers(self.params):
+                if seg.mixer == "ssm":
+                    x = self._ssm_decode_layer(seg, li, p, x, rows,
+                                               self._mlp_fn(seg))
+                    continue
                 x = self._layer(seg, li, p, x, pos[:, None], page_slot,
                                 in_page, attention, self._mlp_fn(seg))
             x = rms_norm(self.params["final_norm"], x, cfg.norm_eps)
-            logits = unembed(self.params["embed"], x, cfg.vocab_size,
-                             fp32=cfg.logits_fp32)[:, 0]
+            logits = logits_of(cfg, self.params["embed"], x)[:, 0]
         if tr is not None:
             tr.exit(graphed=int(graphs is not None))
         self.decode_steps += 1
@@ -626,6 +820,8 @@ class PagedEngine:
     # -- ServingBackend protocol ------------------------------------------------
 
     def add_request(self, req: Request) -> None:
+        if req.parent_id is not None:
+            self._refuse_ssm("best-of-n (SamplingParams.n > 1)")
         if req.prompt_len + req.max_new_tokens > self.max_context_len:
             raise ValueError(
                 f"request {req.request_id} needs "
@@ -767,7 +963,11 @@ class PagedEngine:
         # --- prefill chunks (initiation phase) ---
         forked: List[Request] = []
         ps = self.ecfg.page_size
-        for ch in plan.chunks:
+        chunks = plan.chunks
+        if self.ssm_state is not None and chunks:
+            self._ssm_chunks(chunks, now)  # every chunk in one forward
+            chunks = []
+        for ch in chunks:
             req = ch.req
             if req.request_id not in self.slots:
                 # first chunk: claim the decode slot the request will keep
@@ -861,6 +1061,43 @@ class PagedEngine:
         self._end_iteration(tr, plan, now)
         self.iterations += 1
         return finished
+
+    def _ssm_chunks(self, chunks, now: float) -> None:
+        """The prefill chunks of an iteration of a stack with SSM layers:
+        slots claimed at first chunks, one packed forward
+        (:meth:`_prefill_packed`), then a token sampled for each chunk
+        that ends its prompt."""
+        tr, ps = self.recording, self.ecfg.page_size
+        packed = []
+        for ch in chunks:
+            req = ch.req
+            if self.scheduler.remote_tokens_of(req.request_id):
+                self._check_zero_copy_ok()
+            if req.request_id not in self.slots:
+                # first chunk: claim the decode slot the request will keep
+                self.slots[req.request_id] = self.free_slots.pop()
+            if req.scheduled_time is None:
+                req.scheduled_time = now
+            blocks = self.scheduler.tables[req.request_id].blocks
+            packed.append((req.prompt[ch.start:ch.end],
+                           blocks[:-(-ch.end // ps)], ch.start,
+                           self.slots[req.request_id]))
+        if tr is not None:
+            tr.enter("engine", "chunk")
+        logits = self._prefill_packed(packed)
+        for i, ch in enumerate(chunks):
+            if not ch.is_last:
+                continue
+            req = ch.req
+            tok, lp = self._sample_one(req, logits[i])
+            if req.first_token_time is None:
+                req.first_token_time = now
+                if tr is not None:
+                    tr.instant("req", "first_token", rid=req.request_id)
+            self._emit(req, self.slots[req.request_id], tok, lp, now)
+        if tr is not None:
+            tr.exit(chunks=len(chunks),
+                    length=sum(ch.length for ch in chunks))
 
     def _end_iteration(self, tr: Optional[Tracer], plan, now: float) -> None:
         """Close the step's ``iteration`` span and, with telemetry on, take
@@ -1065,6 +1302,7 @@ class PagedEngine:
             self.trace.instant("net", "charge", seconds=seconds)
 
     def _check_zero_copy_ok(self) -> None:
+        self._refuse_ssm("a zero-copy lease")
         if self.remote_reader is None:
             raise RuntimeError(
                 "request holds a zero-copy lease but no remote_reader is "
@@ -1166,6 +1404,7 @@ class PagedEngine:
         """Prefill side of a KV handoff: return the request's decode slot
         and detach it from the scheduler WITHOUT finishing. The caller must
         already have secured the KV (exported payloads / lent the blocks)."""
+        self._refuse_ssm("a KV handoff")
         slot = self.slots.pop(req.request_id, None)
         if slot is not None:
             self.free_slots.append(slot)
@@ -1177,6 +1416,7 @@ class PagedEngine:
         directly. ``table`` holds the locally-materialized KV pages (all of
         them under migration; only the partial tail page under a zero-copy
         lease, whose full pages stay on the prefill host)."""
+        self._refuse_ssm("a KV handoff")
         if lease is not None:
             self._check_zero_copy_ok()
             check_schema(self.kv_layout.schema,

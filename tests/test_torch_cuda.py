@@ -775,13 +775,114 @@ def test_cuda_ssd_scan_reads_mamba2_projection_slices(cuda, dtype):
 @pytest.mark.gpu
 def test_cuda_ssd_scan_raises_instead_of_falling_back(cuda):
     x, dt, A, B, C = _ssd_inputs(1, 48, 2, 8, 1, 4, 0, cuda)
-    with pytest.raises(ValueError, match="multiple of chunk"):
-        ssd_scan(x, dt, A, B, C, chunk=32)
+    with pytest.raises(ValueError, match="chunk must be"):
+        ssd_scan(x, dt, A, B, C, chunk=0)
+    with pytest.raises(ValueError, match="initial_state"):
+        ssd_scan(x, dt, A, B, C, chunk=32,
+                 initial_state=torch.zeros(1, 2, 8, 4, device=cuda,
+                                           dtype=torch.bfloat16))
     with pytest.raises(TypeError):  # float64 has no kernel
         ssd_scan(x.double(), dt, A, B.double(), C.double(), chunk=16)
     x, dt, A, B, C = _ssd_inputs(1, 32, 2, 80, 1, 4, 0, cuda)
     with pytest.raises(ValueError):  # p above the kernel's tile
         ssd_scan(x, dt, A, B, C, chunk=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,l,h,p,g,n,chunk,cut",
+    [(2, 300, 64, 64, 1, 128, 256, 0),  # mamba2: a short second chunk
+     (1, 777, 128, 64, 1, 128, 256, 300),  # granite-4.0-h: split at 300
+     (2, 77, 8, 64, 1, 128, 48, 40),  # generic instantiation, ragged
+     (2, 100, 6, 50, 2, 16, 32, 33)])  # hymba's P 50 (staged), 2 groups
+def test_cuda_ssd_scan_initial_state_and_any_length(cuda, b, l, h, p, g, n,
+                                                    chunk, cut, dtype):
+    """The scan over a length that is no multiple of its chunk, from a
+    given initial state, and (``cut``) split into two calls at a token
+    that is no chunk boundary, the second starting from the first's
+    final state: against the sequential recurrence from that state, 2e-4
+    of max |y| and of max |state| (the chain test's measure). The
+    initial state is read, not written."""
+    x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, l + chunk, cuda, dtype)
+    s0 = torch.from_numpy(np.random.default_rng(l).standard_normal(
+        (b, h, p, n)).astype(np.float32)).to(cuda)
+    keep = s0.clone()
+    yr, sr = tref.ssd_scan_ref(x, dt, A, B, C, initial_state=s0)
+    before = ssd_scan.launches
+    y, st = ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert torch.equal(s0, keep)
+    assert y.shape == (b, l, h, p)
+    y_err, s_err = _ssd_rel_err(y, st, yr, sr)
+    assert y_err <= 2e-4 and s_err <= 2e-4, (y_err, s_err)
+    if cut:
+        y1, s1 = ssd_scan(x[:, :cut], dt[:, :cut].contiguous(), A,
+                          B[:, :cut], C[:, :cut], chunk=chunk,
+                          initial_state=s0)
+        y2, s2 = ssd_scan(x[:, cut:], dt[:, cut:].contiguous(), A,
+                          B[:, cut:], C[:, cut:], chunk=chunk,
+                          initial_state=s1)
+        y_err, s_err = _ssd_rel_err(torch.cat([y1, y2], 1), s2, yr, sr)
+        assert y_err <= 2e-4 and s_err <= 2e-4, ("split", y_err, s_err)
+    # from zeros (no initial state) the short last chunk alone
+    yz, sz = ssd_scan(x, dt, A, B, C, chunk=chunk)
+    yzr, szr = tref.ssd_scan_ref(x, dt, A, B, C)
+    y_err, s_err = _ssd_rel_err(yz, sz, yzr, szr)
+    assert y_err <= 2e-4 and s_err <= 2e-4, ("zeros", y_err, s_err)
+
+
+# OPT-13B's decode and prefill shapes (H 40 = Hkv, Dh 128, pages of 16)
+_OPT = dict(h=40, hkv=40, dh=128, ps=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_kernels_scale(cuda, dtype):
+    """``scale=None`` launches what the kernels launched before the
+    argument existed (1/sqrt(Dh)): bit-equal to an explicit 1/sqrt(128)
+    at OPT's shape. An explicit scale (granite-4.0-h's 1/128) against the
+    plain versions at that scale, by the tolerances above."""
+    h, hkv, dh, ps = _OPT["h"], _OPT["hkv"], _OPT["dh"], _OPT["ps"]
+    q, kp, vp, bt, lens = _inputs(4, h, hkv, dh, ps, 6, seed=21)
+    args = [t.to(cuda) for t in _torch(q, kp, vp, bt, lens)]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    default = paged_attention(*args, page_size=ps)
+    explicit = paged_attention(*args, page_size=ps, scale=1.0 / dh ** 0.5)
+    assert torch.equal(default, explicit)
+    got = paged_attention(*args, page_size=ps, scale=1.0 / 128)
+    want = tref.paged_attention(*args, page_size=ps, scale=1.0 / 128)
+    tol = F32 if dtype == torch.float32 else BF16
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert not torch.allclose(got.float(), default.float(), **tol)
+
+    rng = np.random.default_rng(22)
+    s, q_offset, n = 100, 37, 10
+    pool = [torch.from_numpy(rng.standard_normal(
+        (n + 2, ps, hkv, dh)).astype(np.float32)).to(cuda, dtype)
+        for _ in range(2)]
+    pages = torch.from_numpy(rng.permutation(n + 2)[:n].astype(
+        np.int32)).to(cuda)
+    qp = torch.from_numpy(rng.standard_normal((1, s, h, dh)).astype(
+        np.float32)).to(cuda, dtype)
+    default = prefill_attention_paged(qp, *pool, pages, q_offset=q_offset)
+    explicit = prefill_attention_paged(qp, *pool, pages, q_offset=q_offset,
+                                       scale=1.0 / dh ** 0.5)
+    assert torch.equal(default, explicit)
+    got = prefill_attention_paged(qp, *pool, pages, q_offset=q_offset,
+                                  scale=1.0 / 128)
+    want = tref.prefill_attention_paged(qp, *pool, pages, q_offset=q_offset,
+                                        scale=1.0 / 128)
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+    qs = qp.reshape(2, s // 2, h, dh).contiguous()
+    ks, vs = (t[:8].reshape(2, 4 * ps, hkv, dh)[:, :s // 2].contiguous()
+              for t in pool)
+    got = prefill_attention(qs, ks, vs, scale=1.0 / 128)
+    want = tref.prefill_attention(qs, ks, vs, scale=1.0 / 128)
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+    assert torch.equal(prefill_attention(qs, ks, vs),
+                       prefill_attention(qs, ks, vs, scale=1.0 / dh ** 0.5))
 
 
 @pytest.mark.gpu
@@ -990,6 +1091,64 @@ def test_cuda_mla_engine_matches_cpu_engine(cuda):
             assert top[0] - top[1] < 2.0 ** -7 * last.abs().max(), (i, x, y)
             break
     assert compared >= 20
+
+
+@pytest.mark.gpu
+def test_cuda_hybrid_engine_matches_cpu_engine(cuda):
+    """A granite-4.0-h stack at smoke width ([mamba, mamba, attention,
+    mamba], float32) on the paged engine: the card's greedy tokens equal
+    the CPU engine's through prompts of 45, 9, 30 and 17 tokens over a
+    24-token budget, so an iteration's chunks run packed in one forward,
+    first chunks beside chunks carried from a slot's state, the scan
+    kernel on strided slices of the packed projection. The devices' sums
+    differ in order (the scan's chunks, the attention kernels' bf16
+    rounding), so a token may differ only where ``Model.forward``'s top-2
+    logits lie within 2**-7 of the largest |logit|, and comparing that
+    request stops there."""
+    import dataclasses
+
+    from repro_torch.bridge import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.api import LLMService, SamplingParams
+    from repro_torch.serving.engine import EngineConfig, PagedEngine
+
+    cfg = dataclasses.replace(
+        get_config("granite-4.0-h-small"), num_layers=4,
+        layer_types=("mamba", "mamba", "attention", "mamba"), d_model=64,
+        num_heads=4, num_kv_heads=2, head_dim=16, vocab_size=512,
+        num_experts=8, moe_top_k=2, moe_d_ff=32, shared_d_ff=48,
+        capacity_factor=4.0, ssm_state=16, ssm_head_dim=16, ssm_chunk=16,
+        dtype="float32", logits_fp32=True, max_seq_len=512)
+    params = init_params(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (45, 9, 30, 17)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        before = (ssd_scan.launches, flash_prefill.launches)
+        engine = PagedEngine(cfg, _to(params, dev), EngineConfig(
+            num_pages=64, page_size=8, max_slots=4, max_tokens_per_iter=24),
+            device=dev)
+        outs = LLMService(engine).generate(
+            prompts, SamplingParams(max_new_tokens=8))
+        runs[str(dev)] = [o.token_ids for o in outs]
+        assert engine.ssm_carried_chunks > 0
+        launched = (ssd_scan.launches - before[0],
+                    flash_prefill.launches - before[1])
+        assert (min(launched) > 0) is (dev != "cpu"), launched
+    model = Model(cfg)
+    compared = 0
+    for prompt, a, b in zip(prompts, runs["cpu"], runs[str(cuda)]):
+        for i, (x, y) in enumerate(zip(a, b)):
+            compared += 1
+            if x == y:
+                continue
+            logits, _ = model.forward(params, torch.tensor([prompt + a[:i]]))
+            last = logits[0, -1, :cfg.vocab_size]
+            top = torch.topk(last, 2).values
+            assert top[0] - top[1] < 2.0 ** -7 * last.abs().max(), (i, x, y)
+            break
+    assert compared >= 16
 
 
 def _to(tree, dev):

@@ -24,7 +24,8 @@ from repro.models import attention as jattn
 from repro.models import layers as jlayers
 
 from repro_torch.bridge import from_numpy_tree, init_params, to_numpy_tree
-from repro_torch.configs import ArchConfig, get_config, smoke_config
+from repro_torch.configs import ArchConfig, get_config, \
+    reference_fields, smoke_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models.transformer import Model, layer_params
@@ -58,9 +59,9 @@ def _assert_bf16_rounding_close(got, want):
 
 def test_config_fields_and_smoke_match_reference():
     from repro.configs import get_config as jget
-    assert dataclasses.asdict(get_config("h2o-danube-1.8b")) == \
+    assert reference_fields(get_config("h2o-danube-1.8b")) == \
         dataclasses.asdict(jget("h2o-danube-1.8b"))
-    assert dataclasses.asdict(smoke_config("h2o-danube-1.8b")) == \
+    assert reference_fields(smoke_config("h2o-danube-1.8b")) == \
         dataclasses.asdict(jax_smoke_config("h2o-danube-1.8b"))
     assert smoke_config("h2o-danube-1.8b").torch_dtype == torch.bfloat16
 

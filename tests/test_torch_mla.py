@@ -50,7 +50,8 @@ from repro.serving.engine import EngineConfig as JaxEngineConfig
 from repro.serving.engine import PagedEngine as JaxEngine
 
 from repro_torch.bridge import from_numpy_tree, init_params, to_numpy_tree
-from repro_torch.configs import ArchConfig, get_config, smoke_config
+from repro_torch.configs import ArchConfig, get_config, \
+    reference_fields, smoke_config
 from repro_torch.core.distkv.dist_attention import (attention_partial,
                                                     merge_partials_tree)
 from repro_torch.core.scheduling.request import Request
@@ -113,7 +114,7 @@ def test_deepseek_config_plan_and_smoke_config():
     """The published widths, the reference's plan (one dense layer, then
     MoE) and the smoke config's MLA and MoE reductions, field for field."""
     full = get_config(ARCH)
-    assert dataclasses.asdict(full) == dataclasses.asdict(
+    assert reference_fields(full) == dataclasses.asdict(
         jax_get_config(ARCH))
     assert (full.d_model, full.num_heads, full.q_lora_rank,
             full.kv_lora_rank, full.qk_nope_head_dim, full.qk_rope_head_dim,
@@ -126,7 +127,7 @@ def test_deepseek_config_plan_and_smoke_config():
     assert plan == [(s.n, s.mixer, s.mlp_kind, s.attn_kind)
                     for s in jax_stack_plan(jax_get_config(ARCH))]
     smoke = smoke_config(ARCH)
-    assert dataclasses.asdict(smoke) == dataclasses.asdict(
+    assert reference_fields(smoke) == dataclasses.asdict(
         jax_smoke_config(ARCH))
     assert (smoke.num_layers, smoke.d_model, smoke.num_heads,
             smoke.kv_lora_rank, smoke.q_lora_rank, smoke.qk_nope_head_dim,

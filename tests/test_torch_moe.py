@@ -28,7 +28,7 @@ from repro.models.transformer import stack_plan as jax_stack_plan
 
 from repro_torch.bridge import from_numpy_tree, init_params, to_numpy_tree
 from repro_torch.configs import ARCH_IDS, ArchConfig, get_config, \
-    smoke_config
+    reference_fields, smoke_config
 from repro_torch.models import moe
 from repro_torch.models.transformer import Model, stack_plan
 
@@ -102,6 +102,22 @@ def test_moe_forward_drops_past_capacity(top_k, dtype):
     cap = moe.capacity(tcfg, 48)
     assert (pos >= cap).any() and (pos < cap).any(), (cap, pos.max())
     _check_moe(*case)
+
+
+@pytest.mark.parametrize("capacity_tokens", [None, 64, 512])
+@pytest.mark.parametrize("factor", [4.0, 0.5])
+def test_fitted_capacity_keeps_the_same_places(factor, capacity_tokens):
+    """``fit_capacity`` (a serving chunk's MoE): the capacity cut to the
+    fullest expert's places, where they fit in less, keeps and drops the
+    same (token, choice)s as the static capacity, at factor 4 (nothing
+    dropped) and 0.5 (drops, where the static capacity stands), so the
+    output is the static capacity's at the file's float32 tolerance (the
+    expert products run over fewer rows)."""
+    tcfg, tp, tx = _moe_case("float32", seed=2, capacity_factor=factor)[3:]
+    want = moe.moe_forward(tcfg, tp, tx, capacity_tokens=capacity_tokens)
+    got = moe.moe_forward(tcfg, tp, tx, capacity_tokens=capacity_tokens,
+                          fit_capacity=True)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
 
 
 class _Groups:
@@ -181,9 +197,9 @@ def test_capacity_matches_reference(tokens):
 def test_config_and_smoke_config_match_reference(arch):
     """Field for field, full and reduced (the MoE branch keeps 4 experts,
     top-k <= 2, ff 128, <= 1 shared expert, capacity factor 4)."""
-    assert dataclasses.asdict(get_config(arch)) == \
+    assert reference_fields(get_config(arch)) == \
         dataclasses.asdict(jax_get_config(arch))
-    assert dataclasses.asdict(smoke_config(arch)) == \
+    assert reference_fields(smoke_config(arch)) == \
         dataclasses.asdict(jax_smoke_config(arch))
 
 

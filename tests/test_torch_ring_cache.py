@@ -45,7 +45,7 @@ from repro.models import Model as JaxModel
 from repro.models import attention as jattn
 
 from repro_torch.bridge import from_numpy_tree
-from repro_torch.configs import ArchConfig
+from repro_torch.configs import ArchConfig, reference_fields
 from repro_torch.models import attention as tattn
 from repro_torch.models.transformer import Model
 
@@ -195,7 +195,7 @@ def test_hybrid_plan_cache_layout():
         stack_plan
 
     cfg = get_config("hymba-1.5b")
-    assert dataclasses.asdict(cfg) == \
+    assert reference_fields(cfg) == \
         dataclasses.asdict(jax_get_config("hymba-1.5b"))
     plan = [(s.n, s.mixer, s.mlp_kind, s.attn_kind) for s in stack_plan(cfg)]
     assert plan == [(s.n, s.mixer, s.mlp_kind, s.attn_kind)

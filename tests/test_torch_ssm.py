@@ -28,7 +28,8 @@ from repro.models import Model as JaxModel
 from repro.models import ssm as jssm
 
 from repro_torch.bridge import from_numpy_tree, init_params, to_numpy_tree
-from repro_torch.configs import ArchConfig, get_config, smoke_config
+from repro_torch.configs import ArchConfig, get_config, \
+    reference_fields, smoke_config
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models import ssm as tssm
@@ -64,8 +65,8 @@ def test_mamba2_config_and_smoke_match_reference():
     full, smoke = get_config("mamba2-1.3b"), smoke_config("mamba2-1.3b")
     jfull, jsmoke = jax_get_config("mamba2-1.3b"), \
         jax_smoke_config("mamba2-1.3b")
-    assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
-    assert dataclasses.asdict(smoke) == dataclasses.asdict(jsmoke)
+    assert reference_fields(full) == dataclasses.asdict(jfull)
+    assert reference_fields(smoke) == dataclasses.asdict(jsmoke)
     assert (smoke.ssm_state, smoke.ssm_head_dim, smoke.ssm_chunk) == \
         (16, 32, 32)
     for ours, theirs in ((full, jfull), (smoke, jsmoke)):
@@ -135,11 +136,19 @@ def test_plain_ssd_scan_bf16_inputs():
 
 
 def test_ssd_scan_raises_on_a_ragged_sequence():
+    """The training scan (``ssd_chunked``, the reference's) still raises
+    on a sequence that is no multiple of its chunk; the serving scans
+    (the kernel's wrapper and its plain version) take it since the short
+    last chunk was ported, and give the sequential recurrence's result to
+    float32 rounding."""
     x, dt, A, B, C = (_t(a) for a in _scan_inputs(1, 48, 2, 8, 1, 4, 0))
     with pytest.raises(ValueError, match="multiple of chunk"):
-        tssd.ssd_scan(x, dt, A, B, C, chunk=32)
-    with pytest.raises(ValueError, match="multiple of chunk"):
-        tref.ssd_scan(x, dt, A, B, C, chunk=32)
+        tssm.ssd_chunked(x, dt, A, B, C, chunk=32)
+    yr, sr = tref.ssd_scan_ref(x, dt, A, B, C)
+    for scan in (tssd.ssd_scan, tref.ssd_scan):
+        y, st = scan(x, dt, A, B, C, chunk=32)
+        np.testing.assert_allclose(_np(y), _np(yr), **SCAN)
+        np.testing.assert_allclose(_np(st), _np(sr), **SCAN)
 
 
 # -- the Mamba2 block ------------------------------------------------------------
@@ -188,6 +197,39 @@ def test_ssm_forward_short_sequence_pads_the_conv_tail(mamba_f32):
     np.testing.assert_allclose(_np(gc.conv), _np(wc.conv), **F32)
     assert gc.conv.shape == (1, jcfg.ssm_conv_width - 1,
                              tssm.conv_dim(tcfg))
+
+
+def test_packed_chunks_continue_each_sequence(mamba_f32):
+    """``ssm_forward_packed`` (the paged engine's prefill: several
+    sequences' chunks on one token axis, each from its own carried conv
+    window and state, or from zeros) gives each sequence what
+    ``ssm_forward`` gives it whole: sequences of 70, 2 and 45 tokens cut
+    at 33, 1 and 20 into two packed calls (ragged scan chunks, and chunks
+    shorter than the conv window), held at the file's float32 tolerance
+    (the scans' chunks fall elsewhere, so the sums round otherwise)."""
+    _, tcfg, _, tparams = mamba_f32
+    tp = layer_params(tparams["segments"][0], 0)["ssm"]
+    rng = np.random.default_rng(5)
+    seqs = [_t(rng.standard_normal((1, n, tcfg.d_model)).astype(np.float32))
+            for n in (70, 2, 45)]
+    cuts = [(0, 33, 70), (0, 1, 2), (0, 20, 45)]
+    caches, outs = [None] * 3, [[] for _ in seqs]
+    for piece in (0, 1):
+        xs = [s[:, c[piece]:c[piece + 1]] for s, c in zip(seqs, cuts)]
+        out, caches = tssm.ssm_forward_packed(
+            tcfg, tp, torch.cat(xs, dim=1), [x.shape[1] for x in xs], caches)
+        assert out.shape == (1, sum(x.shape[1] for x in xs), tcfg.d_model)
+        o = 0
+        for i, x in enumerate(xs):
+            outs[i].append(out[:, o:o + x.shape[1]])
+            o += x.shape[1]
+    for i, s in enumerate(seqs):
+        want, wc = tssm.ssm_forward(tcfg, tp, s, return_cache=True)
+        np.testing.assert_allclose(_np(torch.cat(outs[i], dim=1)),
+                                   _np(want), **F32)
+        np.testing.assert_allclose(_np(caches[i].state), _np(wc.state),
+                                   **F32)
+        assert torch.equal(caches[i].conv, wc.conv)
 
 
 # -- the model ----------------------------------------------------------------------
